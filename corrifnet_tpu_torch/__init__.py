@@ -3,12 +3,14 @@
 The JAX package ``corrifnet_tpu`` stays the reference; this package runs
 the same models with PyTorch, and the JAX package's Pallas kernels become
 kernels written for the H100 (CUDA C++ under ``csrc/``, or Triton). Ported
-so far: MMVit4 (CorrIFNet) inference through ``run.evaluate``. The package
-never imports jax or flax; of the JAX package it imports only the modules
-that load no jax: ``corrifnet_tpu.config`` and ``corrifnet_tpu.data``.
+so far: MMVit4 (CorrIFNet) evaluation through ``run.evaluate`` and training
+through ``run.main``. The package never imports jax, flax or optax, and
+nothing of the JAX package: it keeps its own copies of the numpy-only
+config and data modules.
 
-Layout mirrors ``corrifnet_tpu``: ``ops/`` (kernels beside their plain
-versions), ``nn/``, ``models/``, ``metrics/``, ``run/``.
+Layout mirrors ``corrifnet_tpu``: ``config.py``, ``data/``, ``ops/`` (kernels
+beside their plain versions), ``nn/``, ``models/``, ``metrics/``, ``train/``,
+``utils/``, ``run/``.
 """
 
 __version__ = "0.1.0"

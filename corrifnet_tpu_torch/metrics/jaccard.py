@@ -1,6 +1,6 @@
 """Soft-Jaccard metrics on un-thresholded probabilities (F5_JACCARD2.py).
 
-Counterpart of ``jaccard2`` and ``jaccard_f1_pair`` in
+Counterpart of ``jaccard2``, ``jaccard2_masked`` and ``jaccard_f1_pair`` in
 ``corrifnet_tpu/metrics/jaccard.py``. Inputs are ``(N, 1)`` columns; sums
 run over dim 0. When the ground truth is all background, both masks are
 inverted so an empty patch is scored on the background class
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["jaccard2", "jaccard_f1_pair"]
+__all__ = ["jaccard2", "jaccard2_masked", "jaccard_f1_pair"]
 
 
 def _maybe_invert(y, y_pred):
@@ -29,6 +29,20 @@ def _counts(y, y_pred):
 def jaccard2(y, y_pred, epsilon: float = 1e-8):
     """Soft Jaccard with the all-background inversion (F5_JACCARD2.py:11-20)."""
     tp, fp, fn = _counts(*_maybe_invert(y, y_pred))
+    return (tp + epsilon) / (tp + fp + fn + epsilon)
+
+
+def jaccard2_masked(y, y_pred, valid, epsilon: float = 1e-8):
+    """``jaccard2`` over the rows where ``valid`` (same shape as y) is 1: the
+    padded samples of a ragged final batch are masked out of every sum,
+    including the all-background check
+    (``corrifnet_tpu/metrics/jaccard.py:55-76``)."""
+    empty = (y * valid).sum(0) == 0
+    y_eff = torch.where(empty, 1.0 - y, y) * valid
+    y_pred_eff = torch.where(empty, 1.0 - y_pred, y_pred) * valid
+    tp = (y_pred_eff * y_eff).sum(0)
+    fp = ((valid - y_pred_eff) * y_eff).sum(0)
+    fn = ((valid - y_eff) * y_pred_eff).sum(0)
     return (tp + epsilon) / (tp + fp + fn + epsilon)
 
 

@@ -11,9 +11,10 @@ and convolved, then a 1^3 conv. Depth grows 8 -> 16 -> 32 -> 64 -> 128.
 The head keeps depth slice 0 only (``up_to_224`` with align_corners=True
 and output depth 1 samples source depth 0, mmvit4.py:263).
 
-All 27 conv blocks (15 in the RFMs, 12 in the chain) end in kernel K3.
-The lean chain (``nn/leandec.py``), which changes only what the backward
-stores, comes with training.
+All 27 conv blocks (15 in the RFMs, 12 in the chain) end in kernel K3, in
+training too: this is the JAX module's standard chain (``lean=False``).
+The lean chain (``nn/leandec.py``) changes only what the backward stores
+and is still to be ported (see ROADMAP.md).
 """
 
 from __future__ import annotations

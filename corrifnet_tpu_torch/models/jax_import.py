@@ -1,4 +1,4 @@
-"""JAX MMVit4 variables -> port ``state_dict``.
+"""JAX MMVit4 variables and gradients -> the port's names.
 
 ``mmvit4_state_dict_from_variables`` is the inverse of
 ``corrifnet_tpu.models.torch_import.mmvit4_variables_from_state_dict``. It
@@ -7,7 +7,11 @@ with ``params`` and ``batch_stats`` -- in either tree layout
 (``pack_stage1=True``, the default, or the unpacked one) and returns a
 ``state_dict`` that ``MMVit4.load_state_dict(..., strict=True)`` accepts.
 Every step is a transpose, a reshape or an index: no value changes. It
-imports no jax.
+imports no jax. ``batch_stats`` become the BatchNorm buffers, so the state
+after a training step (parameters and running statistics) converts like
+the initial one. ``mmvit4_named_gradients`` maps a JAX gradient tree (the
+``params`` structure) onto the port's parameter names the same way, so
+gradients compare tensor by tensor under ``named_parameters()``.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW);
@@ -28,6 +32,7 @@ import torch
 
 __all__ = [
     "flatten_variables",
+    "mmvit4_named_gradients",
     "mmvit4_state_dict_from_variables",
     "unflatten_variables",
     "unpack_stage1_variables",
@@ -40,7 +45,10 @@ _CHAIN = ("d4_c1", "d4_c2", "d4_out", "d3_c1", "d3_c2", "d3_out",
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    """A contiguous copy as float32; a float64 array stays float64."""
+    a = np.asarray(a)
+    dtype = np.float64 if a.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
 
 def _conv_weight(kernel):
@@ -61,12 +69,20 @@ def _put(sd, key, tree, weight_fn):
 def _bn(sd, key, params, stats):
     sd[f"{key}.weight"] = _t(params["scale"])
     sd[f"{key}.bias"] = _t(params["bias"])
-    sd[f"{key}.running_mean"] = _t(stats["mean"])
-    sd[f"{key}.running_var"] = _t(stats["var"])
+    if stats is not None:
+        sd[f"{key}.running_mean"] = _t(stats["mean"])
+        sd[f"{key}.running_var"] = _t(stats["var"])
+
+
+def _child(tree, key):
+    """``tree[key]``, or None for a missing tree (gradients have no stats)."""
+    return None if tree is None else tree[key]
 
 
 def _select(tree, *index):
     """Index every leaf of a nested dict."""
+    if tree is None:
+        return None
     if isinstance(tree, Mapping):
         return {k: _select(v, *index) for k, v in tree.items()}
     return np.asarray(tree)[index]
@@ -116,21 +132,23 @@ def unpack_stage1_variables(variables, modalities: int = 3) -> Dict:
 def _bottleneck(sd, key, params, stats):
     for ci in (1, 2, 3):
         sd[f"{key}.conv{ci}.weight"] = _conv_weight(params[f"conv{ci}"]["kernel"])
-        _bn(sd, f"{key}.bn{ci}", params[f"bn{ci}"], stats[f"bn{ci}"])
+        _bn(sd, f"{key}.bn{ci}", params[f"bn{ci}"], _child(stats, f"bn{ci}"))
     if "down_conv" in params:
         sd[f"{key}.downsample.0.weight"] = _conv_weight(params["down_conv"]["kernel"])
-        _bn(sd, f"{key}.downsample.1", params["down_bn"], stats["down_bn"])
+        _bn(sd, f"{key}.downsample.1", params["down_bn"], _child(stats, "down_bn"))
 
 
 def _encoder(sd, prefix, params, stats):
     sd[f"{prefix}.e1_c1.weight"] = _conv_weight(params["stem_conv"]["kernel"])
-    _bn(sd, f"{prefix}.e1_bn", params["stem_bn"], stats["stem_bn"])
+    _bn(sd, f"{prefix}.e1_bn", params["stem_bn"], _child(stats, "stem_bn"))
     for li, blocks in _LAYER_BLOCKS.items():
         layer = f"{prefix}.e{li + 1}"
         _bottleneck(sd, f"{layer}.0", params[f"layer{li}_block0"],
-                    stats[f"layer{li}_block0"])
+                    _child(stats, f"layer{li}_block0"))
         tail_p = params[f"layer{li}_tail"]["blocks"]["block"]
-        tail_s = stats[f"layer{li}_tail"]["blocks"]["block"]
+        tail_s = None
+        if stats is not None:
+            tail_s = stats[f"layer{li}_tail"]["blocks"]["block"]
         for bi in range(1, blocks):
             _bottleneck(sd, f"{layer}.{bi}", _select(tail_p, bi - 1),
                         _select(tail_s, bi - 1))
@@ -172,11 +190,11 @@ def _decoder(sd, params):
 def mmvit4_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
     """JAX MMVit4 ``variables`` (packed or unpacked tree) -> port state_dict."""
     variables = unpack_stage1_variables(variables)
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
     for mi, m in enumerate(_MODALITIES):
         _encoder(sd, f"{m}_encoder", _select(params["encoders"], mi),
-                 _select(stats["encoders"], mi))
+                 _select(_child(stats, "encoders"), mi))
         stream = _select(params["modality_stream"], mi)
         _put(sd, f"{m}_encode_conv", stream["encode_conv"], _dense_as_conv)
         _transformer(sd, f"{m}_transformer", stream["transformer"])
@@ -191,6 +209,13 @@ def mmvit4_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
         _put(sd, f"fusion{i}.conv", params[f"fusion{i}"]["conv"], _conv_weight)
     _decoder(sd, params["decoder"])
     return sd
+
+
+def mmvit4_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of MMVit4's ``params`` (numpy arrays, packed or
+    unpacked layout) -> {port parameter name: gradient}. A gradient moves
+    with its parameter: the same transposes and indices, no value changes."""
+    return mmvit4_state_dict_from_variables({"params": grads})
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

@@ -1,4 +1,4 @@
-"""MMVit4, CorrIFNet (reference mmvit4.py:391-532), for inference.
+"""MMVit4, CorrIFNet (reference mmvit4.py:391-532), for inference and training.
 
 Counterpart of ``corrifnet_tpu/models/mmvit4.py:117-248``, NCDHW inside:
 
@@ -13,6 +13,12 @@ Counterpart of ``corrifnet_tpu/models/mmvit4.py:117-248``, NCDHW inside:
      2048) channels-last, and a 1x1 decode conv;
   6. DecoderFuse (kernel K3 in all 27 conv blocks) to sigmoid probabilities
      (B, 3, 1, 224, 224).
+
+In training mode (``module.train()``) BatchNorm runs on batch statistics
+and the four transformers drop at ``transformer_dropout`` (0.1, the
+reference's rate; 0 makes training deterministic), with the randomness of
+the ``DropoutRng`` given to ``set_dropout_rng``; every kernel runs under
+autograd (K1b and K2b in the backward).
 
 Parameters are f32; ``dtype`` is the compute dtype. Module names are the
 reference's, so ``state_dict()`` is the reference layout (dead reference
@@ -29,7 +35,7 @@ from torch import nn
 
 from corrifnet_tpu_torch.models.decoder import DecoderFuse
 from corrifnet_tpu_torch.models.resnet3d import BASIC_DIMS, ResNet3DEncoder
-from corrifnet_tpu_torch.nn import Conv, EarlyFusionBlock, Transformer
+from corrifnet_tpu_torch.nn import Conv, DropoutRng, EarlyFusionBlock, Transformer
 from corrifnet_tpu_torch.ops import correlation_fusion
 
 __all__ = ["MMVit4", "MODALITIES"]
@@ -50,21 +56,23 @@ class MMVit4(nn.Module):
     """Input (B, 3 modalities, 3 bands, H, W); output sigmoid probabilities
     (B, 3, 1, 224, 224) in f32."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 transformer_dropout: float = 0.1):
         super().__init__()
         self.compute_dtype = dtype
         dim = TRANSFORMER_DIM
+        drop = transformer_dropout
         for m in MODALITIES:
             setattr(self, f"{m}_encoder", ResNet3DEncoder())
             setattr(self, f"{m}_encode_conv", Conv(BASIC_DIMS * 8, dim, 1))
             setattr(self, f"{m}_pos", nn.Parameter(torch.zeros(1, NUM_TOKENS, dim)))
-            setattr(self, f"{m}_transformer", Transformer(dim, 1, 8, 512))
+            setattr(self, f"{m}_transformer", Transformer(dim, 1, 8, 512, drop))
             setattr(self, f"qkv_{m}", Conv(dim, dim * 3, 1))
         for i, c in enumerate(_LEVEL_CHANNELS):
             setattr(self, f"fusion{i + 1}", EarlyFusionBlock(3 * c))
         self.fused6_encode_conv = Conv(BASIC_DIMS * 8 * 3, dim, 1)
         self.fused6_pos = nn.Parameter(torch.zeros(1, NUM_TOKENS, dim))
-        self.multimodal_transformer = Transformer(dim, 1, 8, 512)
+        self.multimodal_transformer = Transformer(dim, 1, 8, 512, drop)
         self.multimodal_decode_conv = Conv(dim * 4, BASIC_DIMS * 8 * 3, 1)
         self.decoder_fuse = DecoderFuse()
 
@@ -79,6 +87,13 @@ class MMVit4(nn.Module):
             for m in MODALITIES:
                 getattr(self, f"{m}_pos").zero_()
             self.fused6_pos.zero_()
+        return self
+
+    def set_dropout_rng(self, rng: DropoutRng):
+        """Give the four transformers the randomness of their dropout."""
+        for module in self.modules():
+            if isinstance(module, Transformer):
+                module.set_dropout_rng(rng)
         return self
 
     def forward(self, x):

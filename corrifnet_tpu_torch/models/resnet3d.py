@@ -4,7 +4,7 @@ Counterpart of ``ResNet3DEncoder`` and ``Bottleneck3D`` in
 ``corrifnet_tpu/models/resnet3d.py``, NCDHW. Input is one modality's
 ``(B, 1, D=3, H, W)`` volume (its three bands on the depth axis). Kept
 quirks: the stem runs conv -> ReLU -> BatchNorm (mmvit4.py:170-174), and
-every conv is kaiming-normal. BatchNorm runs on its running statistics.
+every conv is kaiming-normal. BatchNorm follows ``module.training``.
 
 The JAX package's ``PackedStage1`` (three modalities packed into channels
 to fill the TPU's 128 lanes) is a layout device with the same math; the

@@ -9,12 +9,13 @@ from corrifnet_tpu_torch.nn.conv import (
 )
 from corrifnet_tpu_torch.nn.norm import BatchNorm, InstanceNorm, LayerNorm
 from corrifnet_tpu_torch.nn.resize import max_pool, resize_linear, resize_nearest
-from corrifnet_tpu_torch.nn.transformer import Transformer
+from corrifnet_tpu_torch.nn.transformer import DropoutRng, Transformer
 
 __all__ = [
     "BatchNorm",
     "Conv",
     "Dense",
+    "DropoutRng",
     "EarlyFusionBlock",
     "FusionPrenorm",
     "GeneralConv3d",

@@ -22,11 +22,18 @@ def _apply(x, a, b):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm in eval mode: running statistics, eps 1e-5, affine."""
+    """BatchNorm over all dims but the channel one, eps 1e-5, affine,
+    driven by ``module.training`` (``corrifnet_tpu/nn/norm.py:59-64,81-112``).
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval: the running statistics. Train: the batch mean and *biased*
+    variance in f32 (single pass, E[x^2] - E[x]^2, clamped at 0), with
+    gradients through both, and the running update of PyTorch's BatchNorm:
+    momentum 0.1 and the *unbiased* batch variance, made in place."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -40,8 +47,20 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x):
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return _apply(x, a.view(shape), b.view(shape))
 

@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``build/corrifnet_tpu_torch/``
 at the root of the checkout, on first use. The library name carries a hash
-of the source and the flags, so an edited source rebuilds and a stale
-library is never loaded. It is bound with ``ctypes``, not through
-``torch.utils.cpp_extension`` (a source that includes PyTorch's headers
-takes minutes to compile instead of seconds).
+of the source, the ``csrc/*.cuh`` headers and the flags, so an edited source
+rebuilds and a stale library is never loaded. It is bound with ``ctypes``,
+not through ``torch.utils.cpp_extension`` (a source that includes PyTorch's
+headers takes minutes to compile instead of seconds).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "load_cuda_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_cuda_library", "nvcc_path"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "corrifnet_tpu_torch"
@@ -45,6 +45,8 @@ def nvcc_path() -> str:
 
 def _library_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

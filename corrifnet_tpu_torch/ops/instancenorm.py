@@ -27,8 +27,12 @@ blocks cannot carry a sum from one to the next, so the reduction is split:
 There is no size-based fallback: any N and any C (C is padded to a power
 of two inside a tile and masked).
 
-``relu_instancenorm`` takes the plain version below only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+``relu_instancenorm`` is differentiable. Its backward is the plain PyTorch
+formula from the saved input, not a kernel: the JAX package has no backward
+kernel for this op either (its ``_vjp_bwd``, ``instancenorm.py:142-144``,
+differentiates ``relu_instancenorm_xla``). It takes the plain version below
+only for tensors on the CPU; for CUDA tensors the forward launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import functools
 
 import torch
 
-__all__ = ["relu_instancenorm", "relu_instancenorm_plain"]
+__all__ = ["relu_instancenorm", "relu_instancenorm_backward_plain",
+           "relu_instancenorm_plain"]
 
 _TILE_ELEMS = 4096  # elements of one (BLOCK_N, BLOCK_C) tile
 _STAT_PROGRAMS = 1024  # target number of stats programs over the batch
@@ -51,6 +56,21 @@ def relu_instancenorm_plain(x, eps=1e-5):
     d = y - mean
     var = (d * d).mean(dim=axes, keepdim=True)
     return (d * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def relu_instancenorm_backward_plain(x, g, eps=1e-5):
+    """dx of ``relu_instancenorm_plain`` for the output gradient ``g``, from
+    the saved input: f32 inside, result in x's dtype."""
+    axes = tuple(range(1, x.dim() - 1))
+    y = torch.relu(x).float()
+    mean = y.mean(dim=axes, keepdim=True)
+    d = y - mean
+    rstd = torch.rsqrt((d * d).mean(dim=axes, keepdim=True) + eps)
+    xhat = d * rstd
+    gf = g.float()
+    dy = rstd * (gf - gf.mean(dim=axes, keepdim=True)
+                 - xhat * (gf * xhat).mean(dim=axes, keepdim=True))
+    return torch.where(x > 0, dy, torch.zeros_like(dy)).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,14 +162,8 @@ def _launch_plan(b, n, c):
     return block_n, block_c, rows_per_chunk, -(-n // rows_per_chunk)
 
 
-def relu_instancenorm(x, eps=1e-5):
-    """Channels-last (B, *spatial, C) ReLU + InstanceNorm. CPU tensors: the
-    plain version. CUDA tensors: kernel K3, or an exception; never the
-    plain version."""
-    if x.device.type == "cpu":
-        return relu_instancenorm_plain(x, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no instancenorm kernel for device {x.device}")
+def _launch(x, eps):
+    """Kernel K3 on a CUDA tensor."""
     if x.dim() < 3 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"kernel takes float32 or bfloat16 (B, *spatial, C), "
                          f"got {x.dtype} {tuple(x.shape)}")
@@ -175,6 +189,33 @@ def relu_instancenorm(x, eps=1e-5):
                                      num_warps=4)
     relu_instancenorm.launches += 1
     return out
+
+
+class _ReluInstanceNorm(torch.autograd.Function):
+    """K3 forward; the backward is the plain formula from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        ctx.save_for_backward(x)
+        ctx.eps = eps
+        return _launch(x, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return relu_instancenorm_backward_plain(x, g, ctx.eps), None
+
+
+def relu_instancenorm(x, eps=1e-5):
+    """Channels-last (B, *spatial, C) ReLU + InstanceNorm, differentiable.
+    CPU tensors: the plain version. CUDA tensors: kernel K3, or an
+    exception; never the plain version in the forward."""
+    if x.device.type == "cpu":
+        return relu_instancenorm_plain(x, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no instancenorm kernel for device {x.device}")
+    _kernels()  # a missing compiler raises here, before autograd is involved
+    return _ReluInstanceNorm.apply(x, eps)
 
 
 relu_instancenorm.launches = 0

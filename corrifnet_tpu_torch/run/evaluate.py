@@ -1,8 +1,8 @@
 """Re-evaluate a model over the test fold (allJaccardResults_irem_f1_jcrd.py).
 
-Counterpart of ``corrifnet_tpu/run/evaluate.py:39-177``. The config and
-data path are the JAX package's own numpy modules (they load no jax):
-config -> ``cross_val`` -> ``load_dstl`` (pack or synthetic) -> batches of
+Counterpart of ``corrifnet_tpu/run/evaluate.py:39-177``, on the port's own
+config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack or
+synthetic) -> batches of
 ``max(mini_batch_size, 8)`` -> forward -> per-image (jaccard2, f1) on
 modality channel 0 -> mean and std.
 
@@ -25,9 +25,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from corrifnet_tpu.config import load_config
-from corrifnet_tpu.data import cross_val, load_dstl
-from corrifnet_tpu.data.dataset import make_batches
+from corrifnet_tpu_torch.config import load_config
+from corrifnet_tpu_torch.data import cross_val, load_dstl, make_batches
 from corrifnet_tpu_torch.metrics import jaccard_f1_pair
 from corrifnet_tpu_torch.models import create_model, mmvit4_state_dict_from_variables
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
@@ -84,7 +83,8 @@ def evaluate_run(cfg, weights=None, device="cuda"):
     count, the batch size and each batch's seconds."""
     tsind, trind, _ = cross_val(cfg.train_set_size, cfg.fno, cfg.fsiz)
     data = load_dstl(cfg.train_set_size, trind, pack_path=cfg.data_pack,
-                     synthetic_seed=cfg.synthetic_seed)
+                     synthetic_seed=cfg.synthetic_seed,
+                     data_dirs=cfg.data_dirs)
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed)
     if weights is not None:

@@ -6,8 +6,8 @@
 * weights: JAX variables -> ``mmvit4_state_dict_from_variables`` -> strict
   load -> ``mmvit4_variables_from_state_dict`` returns every leaf bit for
   bit, for the packed and the unpacked tree;
-* the port imports with jax and flax blocked, and of the JAX package only
-  its numpy modules (config, data) allowed;
+* every module of the port imports, and the evaluation entry point runs,
+  with jax, jaxlib, flax, optax and the whole JAX package blocked;
 * the evaluation entry point's plumbing on the CPU.
 """
 
@@ -113,38 +113,36 @@ def test_state_dict_round_trip_is_exact(pack_stage1):
 
 
 _BLOCKED_IMPORT = textwrap.dedent("""
-    import importlib.abc, sys
+    import importlib.abc, json, sys
 
-    # of the JAX package, only its modules that load no jax
-    ALLOWED = ("corrifnet_tpu", "corrifnet_tpu.config", "corrifnet_tpu.data")
-
-    def allowed(name):
-        return name in ALLOWED or name.startswith("corrifnet_tpu.data.")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "corrifnet_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax") or (
-                    top == "corrifnet_tpu" and not allowed(name)):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"blocked: {name}")
 
     sys.meta_path.insert(0, Block())
     import torch
     import corrifnet_tpu_torch
-    for mod in ("metrics", "metrics.jaccard", "models", "models.decoder",
-                "models.jax_import", "models.mmvit4", "models.registry",
-                "models.resnet3d", "nn", "nn.conv", "nn.init", "nn.norm",
-                "nn.resize", "nn.transformer", "ops", "ops.attention",
-                "ops.build", "ops.correlation", "ops.instancenorm",
-                "run.evaluate", "testing"):
+    for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
+                "metrics", "metrics.jaccard", "metrics.losses", "models",
+                "models.decoder", "models.jax_import", "models.mmvit4",
+                "models.registry", "models.resnet3d", "nn", "nn.conv", "nn.init",
+                "nn.norm", "nn.resize", "nn.transformer", "ops", "ops.attention",
+                "ops.build", "ops.correlation", "ops.instancenorm", "run",
+                "run.evaluate", "run.main", "testing", "train",
+                "train.checkpoint", "train.loop", "train.schedule",
+                "train.state", "utils", "utils.logfiles"):
         importlib.import_module("corrifnet_tpu_torch." + mod)
-    from corrifnet_tpu_torch.models import create_model
-    model = create_model("MMVit4", device="cpu")
-    with torch.no_grad():
-        out = model(torch.zeros(1, 3, 3, 32, 32))
-    assert out.shape == (1, 3, 1, 224, 224) and bool(torch.isfinite(out).all())
-    assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules)
-    assert all(allowed(m) for m in sys.modules if m.split(".")[0] == "corrifnet_tpu")
+    from corrifnet_tpu_torch.data import write_permutation
+    from corrifnet_tpu_torch.run.evaluate import main
+    write_permutation(10, ".", seed=0)
+    with open("cfg.json", "w") as f:
+        json.dump({"train_set_size": 10, "synthetic_seed": 0, "dtype": "float32"}, f)
+    r = main(["--config", "cfg.json", "--device", "cpu"])
+    assert r["n_images"] == 2 and 0.0 <= r["jaccard_mean"] <= 1.0
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("OK")
 """)
 

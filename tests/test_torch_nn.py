@@ -186,6 +186,31 @@ def test_resize_nearest_matches_jax(src, dst):
     np.testing.assert_array_equal(_cl(got), want)
 
 
+@pytest.mark.parametrize("src,dst", [
+    ((3, 14, 14), (16, 16, 16)), ((3, 28, 28), (32, 32, 32)),
+    ((3, 56, 56), (64, 64, 64)), ((3, 56, 56), (128, 128, 128)),
+    ((8, 8, 8), (4, 8, 5)),
+])
+def test_resize_nearest_gradient_matches_jax(src, dst):
+    """The port computes this backward itself (one one-hot product per
+    axis): each source voxel gets the sum of the gradients of its copies.
+    Against jax.grad of the JAX function and against PyTorch's own backward
+    on the CPU, f32, 1e-5 of the largest gradient (sums of up to 120
+    terms in another order)."""
+    import torch.nn.functional as F
+    from corrifnet_tpu.nn.resize import resize_nearest as jr
+
+    x = _normal((1, 2, *src), 17)
+    g = _normal((1, 2, *dst), 18)
+    leaf = torch.from_numpy(x).requires_grad_()
+    got, = torch.autograd.grad(tnn.resize_nearest(leaf, dst), leaf, torch.from_numpy(g))
+    want = jax.grad(lambda a: (jr(a, dst) * jnp.asarray(_cl(g))).sum())(jnp.asarray(_cl(x)))
+    atol = 1e-5 * float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(_cl(got.numpy()), np.asarray(want), atol=atol, rtol=0)
+    own, = torch.autograd.grad(F.interpolate(leaf, size=dst), leaf, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), own.numpy(), atol=atol, rtol=0)
+
+
 def test_max_pool_matches_jax():
     from corrifnet_tpu.nn.resize import max_pool as jp
 
@@ -201,7 +226,7 @@ def test_max_pool_matches_jax():
 def test_batchnorm_eval_matches_jax():
     from corrifnet_tpu.nn import BatchNorm as JBN
 
-    bn = tnn.BatchNorm(6)
+    bn = tnn.BatchNorm(6).eval()  # train mode is tests/test_torch_train.py's
     _random_bn_stats(bn, 17)
     x = _normal((2, 6, 3, 5, 5), 18)
     p, s = ti._bn(_sd(bn, "b"), "b")
@@ -316,7 +341,7 @@ def test_metrics_match_jax(empty):
 @pytest.mark.parametrize("name, want", [("bfloat16", torch.bfloat16),
                                         ("float32", torch.float32)])
 def test_evaluate_takes_compute_dtype_from_the_jax_config(tmp_path, name, want):
-    from corrifnet_tpu.config import load_config
+    from corrifnet_tpu_torch.config import load_config
     from corrifnet_tpu_torch.run.evaluate import compute_dtype
 
     path = tmp_path / "cfg.json"
