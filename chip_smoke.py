@@ -7,7 +7,8 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 
 1. device: exit 1 when torch.cuda.is_available() is False; print the
    card's name and power limit as nvidia-smi gives them;
-2. build: compile both CUDA C++ sources with nvcc (in parallel) and load them;
+2. build: compile the four CUDA C++ sources with nvcc (in parallel) and load
+   them;
 3. kernels: each kernel against its plain PyTorch version on the card,
    first in f32 (TF32 off), then in bf16 against the plain version run in
    f32 on the same bf16 inputs; errors, bounds and median CUDA-event times
@@ -20,7 +21,14 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    logsumexp, K2b at rate 0 and 0.1, K3. With dropout on, the plain
    version gets the kernels' Philox mask and the comparison is element by
    element; the mask the kernels' device function writes is held against
-   ``philox_keep_mask`` exactly;
+   ``philox_keep_mask`` exactly. The fused bottleneck convolutions K4a-K4d
+   run at every shape the three encoders give them at B=4 (16 pointwise
+   shapes, 4 3x3 shapes), through their ``autograd.Function`` with non-zero
+   cotangents for y, s and q, in f32 and bf16; two runs must give the same
+   bits, and the evaluation variant without statistics the same y (that
+   variant is also timed at the B=8 shapes); their
+   library yardstick is ``F.linear``/``F.conv2d`` with the BatchNorm apply,
+   ReLU and statistics in tensor ops;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
    and read just after (K1 >= 1, K2 >= 2, K3 = 27 launches per forward);
@@ -38,7 +46,16 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 7. one training step (B=1, f32, TF32 off, dropout 0) on the card against
    the CPU: the loss within 1e-5, and every gradient tensor's relative L2
    distance within twice the worst that the CPU shows against itself
-   when the input changes by one part in 10^6 (measured in the run).
+   when the input changes by one part in 10^6 (measured in the run);
+8. the fused configuration (``"pallas_fused_blocks": true``): phases 4 and 5
+   again through the same entry points, at the same sizes: per forward K4a
+   108 and K4c 39 launches, per training step K4b 108 and K4d 39 more, K1-K3
+   as with the flag off; images/s, step seconds, patches/s and peak memory
+   are printed beside the flag-off numbers of this run;
+9. fused, card against CPU in f32: one train step of a full-width
+   ``Bottleneck3D(pallas_fused=True)`` (output, running statistics,
+   gradients; 1e-4 of each tensor's largest entry) for the three kinds of
+   block, and the whole model of phase 6 with the flag on (1e-4).
 
 Then one JSON line of kernel results, the card line again, and last the
 device line ``{"ok": true, "device": {...}}``. Imports no jax.
@@ -78,8 +95,20 @@ KERNEL_INFO = {
                             "corrifnet_tpu/ops/attention.py:300"),
     "relu_instancenorm": ("triton", "corrifnet_tpu_torch/ops/instancenorm.py",
                           "corrifnet_tpu/ops/instancenorm.py:67"),
+    "pointwise_conv_stats": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_pw.cu",
+                             "corrifnet_tpu/ops/fusedconv.py:142"),
+    "pointwise_conv_stats_bwd": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_pw.cu",
+                                 "corrifnet_tpu/ops/fusedconv.py:211"),
+    "conv3x3_fma_relu_stats": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_c3.cu",
+                               "corrifnet_tpu/ops/fusedconv.py:418"),
+    "conv3x3_fma_relu_stats_bwd": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_c3.cu",
+                                   "corrifnet_tpu/ops/fusedconv.py:514"),
 }
-CUDA_SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
+# the kernels only the fused configuration launches
+K4_KERNELS = ("pointwise_conv_stats", "pointwise_conv_stats_bwd",
+              "conv3x3_fma_relu_stats", "conv3x3_fma_relu_stats_bwd")
+CUDA_SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "fusedconv_pw.cu",
+                "fusedconv_c3.cu")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core rate, same sheet
 EVAL_B = 8   # per_image_metrics batch: max(mini_batch_size=4, 8)
@@ -105,6 +134,33 @@ def k3_shapes(b):
     ]
 
 
+ENCODERS = 3
+K4_PER_FORWARD = {"pointwise_conv_stats": 108, "conv3x3_fma_relu_stats": 39}
+
+
+def k4_pointwise_shapes(b):
+    """(rows, ci, co, prologue, calls per encoder) of the 36 fused 1x1 convs of
+    one encoder: conv1 (no prologue), conv3 (prologue) and the projection of
+    each first block (no prologue, on the subsampled input)."""
+    r = [3 * b * side * side for side in (56, 28, 14, 7)]  # depth 3 in the batch
+    return [
+        (r[0], 64, 64, False, 1), (r[0], 64, 256, True, 3), (r[0], 64, 256, False, 1),
+        (r[0], 256, 64, False, 2), (r[0], 256, 128, False, 1),
+        (r[1], 128, 512, True, 4), (r[1], 256, 512, False, 1),
+        (r[1], 512, 128, False, 3), (r[1], 512, 256, False, 1),
+        (r[2], 256, 1024, True, 6), (r[2], 512, 1024, False, 1),
+        (r[2], 1024, 256, False, 5), (r[2], 1024, 512, False, 1),
+        (r[3], 512, 2048, True, 3), (r[3], 1024, 2048, False, 1),
+        (r[3], 2048, 512, False, 2),
+    ]
+
+
+def k4_conv_shapes(b):
+    """(x shape, calls per encoder) of the 13 fused stride-1 3x3 convs."""
+    return [((3 * b, 56, 56, 64), 3), ((3 * b, 28, 28, 128), 3),
+            ((3 * b, 14, 14, 256), 5), ((3 * b, 7, 7, 512), 2)]
+
+
 # f32 bounds against the plain version: sums in another order
 K1_ATOL = 1e-6
 K2_ATOL = 2e-5
@@ -118,6 +174,14 @@ K2_GRAD_RTOL = 2e-5
 # gradient are generous
 K2_BF16_ATOL = 2e-2
 K2_BF16_GRAD_RTOL = 2e-2
+# K4: max |kernel - plain| over max |plain|, per output. f32: sums of up to
+# 37,632 rows or 9 x 512 channels in another order. bf16: the plain version
+# rounds at the same points with f32 accumulation, so values differ by one
+# bf16 ulp where a sum lands on the other side of a rounding boundary; the
+# f32 statistics see the same rounded inputs
+K4_F32, K4_BF16, K4_BF16_STATS = 2e-5, 1e-2, 1e-4
+# a fused bottleneck's train step, card against CPU, of each tensor's largest entry
+FUSED_BLOCK_RTOL = 1e-4
 WHOLE_MODEL_ATOL = 1e-4
 # one f32 training step, card against CPU: the loss, and the gradients'
 # relative L2 distance as a multiple of what the CPU shows against itself
@@ -435,15 +499,187 @@ def check_keep_mask(ops, tally):
     tally.check(not torch.equal(got[0], got[1]), "keep mask repeats across heads")
 
 
+def rel_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def fused_conv_bound_ms(rows, ci, co, taps, backward):
+    """max(bytes, operations) of one fused conv in bf16: forward reads x and
+    w and writes y; backward reads x, w, y, dy and writes dx and dw; the
+    per-channel vectors are left out. 2 rows ci co taps operations forward,
+    twice that backward."""
+    weight = taps * ci * co
+    moved = 2 * ((2 * rows * (ci + co) + 2 * weight) if backward
+                 else (rows * (ci + co) + weight))
+    flops = (4 if backward else 2) * rows * ci * co * taps
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def library_fused_conv(x, w_lib, a, b, taps, stats=True):
+    """The same function from library calls and tensor ops: BatchNorm apply
+    and ReLU, ``F.linear`` or ``F.conv2d`` (``w_lib`` in the library's
+    layout), statistics from the f32 cast of the output. Timed only."""
+    z = torch.relu(x * a.to(x.dtype) + b.to(x.dtype)) if a is not None else x
+    y = F.linear(z, w_lib) if taps == 1 else F.conv2d(z.permute(0, 3, 1, 2), w_lib,
+                                                      padding=1)
+    if not stats:
+        return y
+    yf, dims = y.float(), (0,) if taps == 1 else (0, 2, 3)
+    y = y if taps == 1 else y.permute(0, 2, 3, 1)
+    return y, yf.sum(dim=dims), (yf * yf).sum(dim=dims)
+
+
+def fused_conv_inputs(gen, xs, co, prologue, dtype):
+    """(x, w, a, b) of one fused conv: unit-variance x, w scaled so that y
+    is O(1), a in [0.5, 1.5), b ~ 0.3 N(0, 1); (a, b) None without a prologue."""
+    taps, ci = (1 if len(xs) == 2 else 9), xs[-1]
+    x = randn(xs, gen).to(dtype)
+    w = (randn((ci, co) if taps == 1 else (3, 3, ci, co), gen) / (taps * ci) ** 0.5).to(dtype)
+    a = torch.rand(ci, generator=gen, device="cuda") + 0.5 if prologue else None
+    b = 0.3 * randn((ci,), gen) if prologue else None
+    return x, w, a, b
+
+
+def library_weight(w):
+    """The (ci, co) or (3, 3, ci, co) weight in ``F.linear``'s or ``F.conv2d``'s layout."""
+    if w.dim() == 2:
+        return w.t().contiguous()
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def check_fused_conv_forward(ops, tally, gen, xs, co, prologue, calls):
+    """K4a or K4c as the evaluation path launches it: under ``no_grad``,
+    without the statistics, in bf16."""
+    taps = 1 if len(xs) == 2 else 9
+    name = "pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"
+    fwd, plain = getattr(ops, name), getattr(ops, name + "_plain")
+    args = fused_conv_inputs(gen, xs, co, prologue, torch.bfloat16)
+    w_lib = library_weight(args[1])
+    with torch.no_grad():
+        y, s, q = fwd(*args, stats=False)
+        want = plain(*args)[0]
+        err = rel_max(y, want)
+        tally.check(err <= K4_BF16 and s is None and q is None,
+                    f"{name} {xs} -> {co} no statistics bf16 {err:.1e}")
+        k_ms = median_ms(lambda: fwd(*args, stats=False))
+        p_ms = median_ms(lambda: plain(*args))
+        l_ms = median_ms(lambda: library_fused_conv(args[0], w_lib, args[2], args[3],
+                                                    taps, stats=False))
+    rows = int(np.prod(xs[:-1]))
+    bound, by = fused_conv_bound_ms(rows, xs[-1], co, taps, False)
+    log(f"  {name} {xs} -> {co}{' prologue' if prologue else ''} x{calls * ENCODERS}, no "
+        f"statistics (under no_grad): bf16 rel-max {err:.1e} (bound {K4_BF16}); kernel "
+        f"{k_ms:.4f} plain {p_ms:.4f} library {l_ms:.4f} bound {bound:.4f} ms ({by})")
+    tally.add(name, calls * ENCODERS, (y.float() - want.float()).abs().max().item(),
+              k_ms, p_ms, bound, by, l_ms)
+
+
+def fused_conv_step(fn, args, cotangents):
+    """What a training step runs: the wrapper on leaves that need gradients
+    and the backward with all three cotangents. Returns the outputs, the
+    gradients and (graph outputs, leaves) for timing further backwards."""
+    leaves = [t.detach().clone().requires_grad_() for t in args if t is not None]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, cotangents, retain_graph=True)
+    return [o.detach() for o in out], grads, (out, leaves)
+
+
+def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
+    """K4a+K4b (``xs`` = (rows, ci)) or K4c+K4d (``xs`` = (B, H, W, ci))
+    against their plain versions in f32 and bf16, and their bf16 times."""
+    taps = 1 if len(xs) == 2 else 9
+    name = "pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"
+    fwd, plain = getattr(ops, name), getattr(ops, name + "_plain")
+    plain_bwd = getattr(ops, name + "_backward_plain")
+    ci, rows = xs[-1], int(np.prod(xs[:-1]))
+    x, w, a, b = fused_conv_inputs(gen, xs, co, prologue, torch.float32)
+    cot = (randn((*xs[:-1], co), gen), 0.3 * randn((co,), gen), 0.01 * randn((co,), gen))
+    tag = f"{name} {xs} -> {co}{' prologue' if prologue else ''}"
+
+    errs = {}
+    for dtype, bound, stats_bound in ((torch.float32, K4_F32, K4_F32),
+                                      (torch.bfloat16, K4_BF16, K4_BF16_STATS)):
+        args = (x.to(dtype), w.to(dtype), a, b)
+        cots = (cot[0].to(dtype), cot[1], cot[2])
+        out, grads, graph = fused_conv_step(fwd, args, cots)
+        want = plain(*args)
+        want_grads = [g for g in plain_bwd(*args, out[0], *cots) if g is not None]
+        e_out = [rel_max(g, r) for g, r in zip(out, want)]
+        e_grad = [rel_max(g, r) for g, r in zip(grads, want_grads)]
+        short = "f32" if dtype == torch.float32 else "bf16"
+        tally.check(e_out[0] <= bound and max(e_out[1:]) <= stats_bound,
+                    f"{tag} {short} forward {e_out}")
+        tally.check(len(grads) == len(want_grads) and max(e_grad) <= bound,
+                    f"{tag} {short} backward {e_grad}")
+        errs[short] = (e_out, e_grad)
+    # bf16 from here on: repeatability, the evaluation variant, the times
+    out2, grads2, _ = fused_conv_step(fwd, args, cots)
+    same = all(torch.equal(u, v) for u, v in zip((*out, *grads), (*out2, *grads2)))
+    with torch.no_grad():
+        y_eval, s_eval, q_eval = fwd(*args, stats=False)
+    same_eval = torch.equal(y_eval, out[0]) and s_eval is None and q_eval is None
+    tally.check(same, f"{tag}: two runs differ")
+    tally.check(same_eval, f"{tag}: y without the statistics differs")
+    abs_fwd = (out[0].float() - want[0].float()).abs().max().item()
+    abs_bwd = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(grads, want_grads))
+
+    leaves = graph[1]
+    k_f = median_ms(lambda: fwd(*leaves))
+    k_b = median_ms(lambda: torch.autograd.grad(*graph, cots, retain_graph=True))
+    p_f = median_ms(lambda: plain(*args))
+    p_b = median_ms(lambda: plain_bwd(*args, out[0], *cots))
+    lib_leaves = [t.detach().clone().requires_grad_()
+                  for t in (args[0], library_weight(args[1]), a, b) if t is not None]
+    lib = lambda: library_fused_conv(  # noqa: E731
+        lib_leaves[0], lib_leaves[1], *(lib_leaves[2:] or (None, None)), taps)
+    l_f = median_ms(lib)
+    lib_out = lib()
+    l_b = median_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, cots,
+                                                retain_graph=True))
+    (bf, byf), (bb, byb) = (fused_conv_bound_ms(rows, ci, co, taps, back)
+                            for back in (False, True))
+    log(f"  {tag} x{calls * ENCODERS}: rel-max f32 fwd {max(errs['f32'][0]):.1e} bwd "
+        f"{max(errs['f32'][1]):.1e} (bound {K4_F32}); bf16 y {errs['bf16'][0][0]:.1e} "
+        f"grads {max(errs['bf16'][1]):.1e} (bound {K4_BF16}) s,q "
+        f"{max(errs['bf16'][0][1:]):.1e} (bound {K4_BF16_STATS}); repeatable {same}, "
+        f"eval y equal {same_eval}; bf16 ms fwd kernel {k_f:.4f} plain {p_f:.4f} library "
+        f"{l_f:.4f} bound {bf:.4f} ({byf}); bwd kernel {k_b:.4f} plain {p_b:.4f} library "
+        f"{l_b:.4f} bound {bb:.4f} ({byb})")
+    n = calls * ENCODERS
+    tally.add(name, n, abs_fwd, k_f, p_f, bf, byf, l_f)
+    tally.add(name + "_bwd", n, abs_bwd, k_b, p_b, bb, byb, l_b)
+
+
+def check_fused_convs(ops, tally, b, gen, backward):
+    pointwise, conv = k4_pointwise_shapes(b), k4_conv_shapes(b)
+    counts = {"pointwise_conv_stats": ENCODERS * sum(s[-1] for s in pointwise),
+              "conv3x3_fma_relu_stats": ENCODERS * sum(s[-1] for s in conv)}
+    if counts != K4_PER_FORWARD:
+        raise AssertionError(f"shape lists give {counts}, the model {K4_PER_FORWARD}")
+    check = check_fused_conv if backward else check_fused_conv_forward
+    for rows, ci, co, prologue, calls in pointwise:
+        check(ops, tally, gen, (rows, ci), co, prologue, calls)
+    for xs, calls in conv:
+        check(ops, tally, gen, xs, xs[-1], True, calls)
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(ops):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # K4's inputs come from a generator of their own, so that K1-K3 see the
+    # inputs they saw before K4 was added
+    gen4 = torch.Generator(device="cuda").manual_seed(4)
     log(f" evaluation shapes (B={EVAL_B}), forward kernels, sums over one forward:")
     fwd = Tally()
     check_correlation(ops, fwd, EVAL_B, gen, backward=False)
     check_attention_forward(ops, fwd, EVAL_B, gen)
     check_instancenorm(ops, fwd, EVAL_B, gen)
+    check_fused_convs(ops, fwd, EVAL_B, gen4, backward=False)
     fwd.report(f"B={EVAL_B} forward")
     torch.cuda.empty_cache()
     log(f" training shapes (B={TRAIN_B}), sums over one training step:")
@@ -455,6 +691,9 @@ def phase_kernels(ops):
     check_attention_step(ops, step, TRAIN_B, gen, RATE)
     check_keep_mask(ops, step)
     check_instancenorm(ops, step, TRAIN_B, gen)
+    log(f" fused bottleneck convolutions at the encoders' shapes (B={TRAIN_B}), "
+        f"calls per step over the three encoders:")
+    check_fused_convs(ops, step, TRAIN_B, gen4, backward=True)
     step.report(f"B={TRAIN_B} training step")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -479,11 +718,12 @@ def write_run_inputs(n, tmp, name, **extra):
     return cfg
 
 
-def evaluate(n, tmp):
+def evaluate(n, tmp, fused):
     """Drive the evaluation CLI over fold 2 of 5 of ``n`` synthetic patches."""
     from corrifnet_tpu_torch.run.evaluate import main as evaluate_main
 
-    cfg = write_run_inputs(n, tmp, f"eval{n}.json")
+    cfg = write_run_inputs(n, tmp, f"eval{n}_{int(fused)}.json",
+                           pallas_fused_blocks=fused)
     return evaluate_main(["--config", str(cfg), "--device", "cuda"])
 
 
@@ -497,16 +737,27 @@ def read_counts(ops):
     return {n: w.launches for n, w in ops.KERNELS.items()}
 
 
-def phase_eval_slice(ops, tmp):
+def k4_counts(forwards, steps, fused):
+    """The K4 launches of ``forwards`` forwards, ``steps`` of them with a
+    backward: none with the flag off."""
+    per = K4_PER_FORWARD if fused else dict.fromkeys(K4_PER_FORWARD, 0)
+    want = {name: forwards * n for name, n in per.items()}
+    want.update({name + "_bwd": steps * n for name, n in per.items()})
+    return want
+
+
+def phase_eval_slice(ops, tmp, fused=False):
     """16 images through the entry point with the launch counters reset
     just before and read just after; then a test fold of 48 images (6
-    batches) timed through the same entry point."""
+    batches) timed through the same entry point. Returns the launch counts
+    and the timed numbers."""
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
-    r = evaluate(80, tmp)
+    r = evaluate(80, tmp, fused)
     launches = read_counts(ops)
     peak = torch.cuda.max_memory_allocated()
-    timed = evaluate(TIMED_SET, tmp)
+    timed = evaluate(TIMED_SET, tmp, fused)
     forwards = len(r["batch_seconds"])
     log(f"  jaccard2 {r['jaccard_mean']:.6f} +- {r['jaccard_std']:.6f}  "
         f"f1 {r['f1_mean']:.6f} +- {r['f1_std']:.6f}  n_images {r['n_images']}")
@@ -523,7 +774,8 @@ def phase_eval_slice(ops, tmp):
             and per_forward["fused_attention"] >= 2
             and per_forward["relu_instancenorm"] == 27
             and per_forward["correlation_fusion_bwd"] == 0
-            and per_forward["fused_attention_bwd"] == 0):
+            and per_forward["fused_attention_bwd"] == 0
+            and all(launches[k] == v for k, v in k4_counts(forwards, 0, fused).items())):
         raise AssertionError(f"kernel launches per forward: {per_forward}")
 
     rest = timed["batch_seconds"][1:]
@@ -535,16 +787,18 @@ def phase_eval_slice(ops, tmp):
     if timed["n_images"] != TIMED_SET // 5 or len(rest) < 5:
         raise AssertionError(f"timed run: {timed['n_images']} images, "
                              f"{len(rest)} timed batches")
-    return launches
+    return launches, {"images_per_s": EVAL_B / med, "batch_seconds": med,
+                      "peak_bytes": peak}
 
 
-def phase_train_slice(ops, tmp):
+def phase_train_slice(ops, tmp, fused=False):
     """The training CLI at full width for one epoch of 8 steps, validation
     by checkpoint and the test; launch counters reset just before and read
-    just after. Returns the launch counts of the run."""
+    just after. Returns the launch counts of the run and its timed numbers."""
     from corrifnet_tpu_torch.run.main import main as train_main
 
-    cfg = write_run_inputs(TRAIN_SET, tmp, "train.json", n_epochs=1)
+    cfg = write_run_inputs(TRAIN_SET, tmp, f"train_{int(fused)}.json", n_epochs=1,
+                           pallas_fused_blocks=fused)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
@@ -558,12 +812,17 @@ def phase_train_slice(ops, tmp):
     evals = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
     want = {"correlation_fusion": steps + evals, "correlation_fusion_bwd": steps,
             "fused_attention": 4 * (steps + evals), "fused_attention_bwd": 4 * steps,
-            "relu_instancenorm": 27 * (steps + evals)}
+            "relu_instancenorm": 27 * (steps + evals),
+            **k4_counts(steps + evals, steps, fused)}
     log(f"  {steps} training steps, {evals} evaluation batches in {wall:.2f} s; "
         f"launches {launches}")
     log(f"  per training step: K1f 1, K1b {launches['correlation_fusion_bwd'] / steps:g}, "
         f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 27 "
-        f"(forward-only batches launch K1f 1, K2f 4, K3 27 each)")
+        f"(forward-only batches launch K1f 1, K2f 4, K3 27 each); K4a "
+        f"{launches['pointwise_conv_stats'] / (steps + evals):g} and K4c "
+        f"{launches['conv3x3_fma_relu_stats'] / (steps + evals):g} per forward, K4b "
+        f"{launches['pointwise_conv_stats_bwd'] / steps:g} and K4d "
+        f"{launches['conv3x3_fma_relu_stats_bwd'] / steps:g} per step")
     if steps != 8 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
 
@@ -596,14 +855,15 @@ def phase_train_slice(ops, tmp):
         f"{max(rest):.4f}); patches/s {TRAIN_B / med:.3f} (from the max "
         f"{TRAIN_B / max(rest):.3f}, from the min {TRAIN_B / min(rest):.3f}); peak "
         f"memory allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)")
-    return launches
+    return launches, {"patches_per_s": TRAIN_B / med, "step_seconds": med,
+                      "peak_bytes": peak}
 
 
 def seeded_image():
     return torch.randn((1, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
 
 
-def phase_whole_model():
+def phase_whole_model(fused=False):
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm
 
@@ -611,6 +871,13 @@ def phase_whole_model():
     cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0)
     # O(1) activations, as trained statistics give (see calibrate_batchnorm)
     calibrate_batchnorm(cpu, x)
+    if fused:
+        # same weights and statistics (the calibration hooks BatchNorm.forward,
+        # which the fused blocks do not call)
+        calibrated = cpu.state_dict()
+        cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
+                           pallas_fused_blocks=True)
+        cpu.load_state_dict(calibrated, strict=True)
     gpu = copy.deepcopy(cpu).to("cuda")
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -625,6 +892,36 @@ def phase_whole_model():
         raise AssertionError("whole-model output malformed")
     if not diff <= WHOLE_MODEL_ATOL:
         raise AssertionError(f"whole model GPU vs CPU {diff} > {WHOLE_MODEL_ATOL}")
+
+
+def phase_fused_block():
+    """One f32 train step of a full-width fused bottleneck (layer 2's widths)
+    on the card against the CPU, same weights and input: output, running
+    statistics, gradients of the input and of every parameter. The data are
+    the first seed on which the CPU's own results move by no more than 1e-5
+    under a 1e-6 change of the input (no ReLU input within rounding of 0:
+    see ``testing.well_conditioned_block``)."""
+    from corrifnet_tpu_torch.models.resnet3d import Bottleneck3D
+    from corrifnet_tpu_torch.testing import block_train_step, well_conditioned_block
+
+    for stride, down in ((1, False), (1, True), (2, True)):
+        cin = 256 if down else 512
+        cpu, x, want, seed = well_conditioned_block(
+            lambda: Bottleneck3D(cin, 128, stride, down, pallas_fused=True),
+            (2, cin, 3, 28, 28))
+        got = block_train_step(copy.deepcopy(cpu).to("cuda"), x)
+        errs = {k: rel_max(got[k], v) for k, v in want.items()}
+        worst = max(errs, key=errs.get)
+        log(f"  stride {stride}, projection {down}, seed {seed}: {len(errs)} tensors, "
+            f"worst max |GPU - CPU| / max |CPU| {errs[worst]:.3e} at {worst} "
+            f"(bound {FUSED_BLOCK_RTOL})")
+        if not errs[worst] <= FUSED_BLOCK_RTOL:
+            raise AssertionError(f"fused bottleneck GPU vs CPU: {errs}")
+
+
+def compare_line(what, unit, off, on):
+    log(f"  {what}: flag on {on:.4f} {unit}, flag off {off:.4f} {unit} "
+        f"(on / off {on / off:.3f})")
 
 
 def step_gradients(model, x, masks, valid):
@@ -722,7 +1019,8 @@ def main():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
         list(pool.map(load_cuda_library, CUDA_SOURCES))  # one nvcc each, together
-    log(f"  nvcc build + load of 2 sources {time.perf_counter() - t0:.2f} s")
+    log(f"  nvcc build + load of {len(CUDA_SOURCES)} sources "
+        f"{time.perf_counter() - t0:.2f} s")
     for report in sorted(BUILD_DIR.glob("*.log")):
         summary = [ln for ln in report.read_text().splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -738,11 +1036,32 @@ def main():
         os.chdir(tmp)
         try:
             log("phase 4: evaluation slice, 16 images, B=8, bf16")
-            phase_eval_slice(ops, tmp)
+            eval_launches, eval_off = phase_eval_slice(ops, tmp)
             log("phase 5: training slice, 40 patches, 1 epoch, B=4, bf16, dropout 0.1")
-            launches = phase_train_slice(ops, tmp)
+            launches, train_off = phase_train_slice(ops, tmp)
+            log("phase 8: the fused configuration (pallas_fused_blocks) through "
+                "both entry points, same sizes")
+            fused_eval_launches, eval_on = phase_eval_slice(ops, tmp, fused=True)
+            fused_launches, train_on = phase_train_slice(ops, tmp, fused=True)
         finally:
             os.chdir(here)
+    for counts, fused_counts in ((eval_launches, fused_eval_launches),
+                                 (launches, fused_launches)):
+        moved = {k: (v, fused_counts[k]) for k, v in counts.items()
+                 if k not in K4_KERNELS and fused_counts[k] != v}
+        if moved:
+            raise AssertionError(f"K1-K3 launches differ with the flag on: {moved}")
+    compare_line("evaluation images/s", "", eval_off["images_per_s"],
+                 eval_on["images_per_s"])
+    compare_line("evaluation peak memory", "GiB", eval_off["peak_bytes"] / 2 ** 30,
+                 eval_on["peak_bytes"] / 2 ** 30)
+    compare_line("training median step", "s", train_off["step_seconds"],
+                 train_on["step_seconds"])
+    compare_line("training patches/s", "", train_off["patches_per_s"],
+                 train_on["patches_per_s"])
+    compare_line("training peak memory", "GiB", train_off["peak_bytes"] / 2 ** 30,
+                 train_on["peak_bytes"] / 2 ** 30)
+    launches = {**launches, **{k: fused_launches[k] for k in K4_KERNELS}}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -750,6 +1069,10 @@ def main():
     phase_whole_model()
     log("phase 7: one training step, B=1 f32, GPU kernels vs CPU plain versions")
     phase_train_step()
+    log("phase 9: fused, GPU kernels vs CPU plain versions, f32: bottleneck train "
+        "steps, then the whole model at B=1")
+    phase_fused_block()
+    phase_whole_model(fused=True)
     torch.cuda.synchronize()
     log(f"chip_smoke took {time.perf_counter() - started:.1f} s")
 

@@ -4,8 +4,11 @@ read at F2_MAIN.py:62-83).
 Counterpart of ``corrifnet_tpu/config.py``, kept as the port's own copy:
 every field and default is the JAX package's, so the same 18-line ``.txt``
 and the same JSON load in both. Only the ``jax_dtype`` property is gone
-(``run.evaluate.compute_dtype`` names the torch dtype). Fields that steer
-TPU machinery the port does not have are parsed and ignored.
+(``run.evaluate.compute_dtype`` names the torch dtype). ``check_supported``,
+called by both entry points before anything is built, refuses by name every
+field that is set off its default, changes what is computed or written, and
+is not honoured by the port yet; fields that steer TPU machinery with no
+effect on results are accepted and named on one log line.
 
 Two loaders: the reference's positional ``model{i}.txt`` format (one value
 per line, order fixed) for drop-in compatibility, and a modern JSON/dict
@@ -21,7 +24,8 @@ import json
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["ExperimentConfig", "load_text_config", "load_config"]
+__all__ = ["ExperimentConfig", "check_supported", "load_text_config",
+           "load_config"]
 
 
 @dataclasses.dataclass
@@ -128,3 +132,42 @@ def load_config(path) -> ExperimentConfig:
     if p.suffix == ".json":
         return ExperimentConfig(**json.loads(p.read_text()))
     return load_text_config(p)
+
+
+# field: (is it off its default?, what it asks for)
+_NOT_HONOURED = {
+    "fuse_expand_bn": (lambda v: bool(v), "bn3/down_bn folded into their convs"),
+    "depth_mode": (lambda v: v != "full", "the depth-pruned decoder"),
+    "decoder_lean": (lambda v: v is True, "the lean-residual decoder backward"),
+    "decoder_chunk": (lambda v: v != 0, "depth-chunked decoder backwards"),
+    "decoder_remat": (lambda v: bool(v), "decoder rematerialization"),
+    "mesh_shape": (lambda v: v is not None, "SPMD training over a device mesh"),
+    "extended_checkpoints": (lambda v: bool(v), "full train-state checkpoints"),
+    "transfer_checkpoint": (lambda v: v is not None, "a warm start"),
+}
+# TPU machinery without effect on what is computed or written
+_NO_EFFECT = {"chain_steps": 1, "auto_layout": False, "scan_unroll": 1,
+              "remat_mode": "all"}
+
+
+def check_supported(cfg: ExperimentConfig, device) -> None:
+    """Raise ``NotImplementedError`` naming the first config field that is
+    set off its default and that the port does not honour yet; the JAX entry
+    point honours each (``corrifnet_tpu/run/main.py:48-67``). ``use_pallas =
+    False`` is refused on a CUDA device only: there the kernels are the only
+    path, on the CPU the plain versions run either way."""
+    for name, (is_set, what) in _NOT_HONOURED.items():
+        if is_set(getattr(cfg, name)):
+            raise NotImplementedError(
+                f"config field {name}={getattr(cfg, name)!r} ({what}) is not "
+                f"ported to corrifnet_tpu_torch yet (see ROADMAP.md)")
+    if cfg.use_pallas is False and str(device).startswith("cuda"):
+        raise NotImplementedError(
+            "config field use_pallas=False (the plain versions in place of the "
+            "kernels) is not ported to corrifnet_tpu_torch on a CUDA device "
+            "(see ROADMAP.md)")
+    inert = [f"{k}={getattr(cfg, k)!r}" for k, v in _NO_EFFECT.items()
+             if getattr(cfg, k) != v]
+    if inert:
+        print("config: " + ", ".join(inert) + " steer TPU machinery and have no "
+              "effect in corrifnet_tpu_torch")

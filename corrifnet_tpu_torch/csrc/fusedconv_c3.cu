@@ -1,0 +1,107 @@
+// Fused 3x3 stride-1 bottleneck convolution for Hopper (sm_90a), forward (K4c)
+// and backward (K4d), over channels-last images (the depth axis folded into
+// the batch by the caller):
+//     z = relu(x*a + b), zero-padded (1, 1) after the prologue,
+//     y = conv3x3(z, w),  s = sum_pixels y,  q = sum_pixels y^2
+//     g = dy + ds + 2 dq y;  dw[u, v] = z_shift(u, v)^T g;
+//     dz = sum_(u, v) g_shift(2-u, 2-v) w[u, v]^T;  dx, da, db as the 1x1 conv
+//
+// Replaces the TPU kernels corrifnet_tpu/ops/fusedconv.py::_c3_kernel (through
+// _c3_pallas's pl.pallas_call) and ::_c3_bwd_kernel (through _c3_bwd_pallas).
+// The TPU kernels stage whole zero-padded images and the whole (3, 3, ci, co)
+// weight in fast memory; at 512 channels that weight alone is twenty times a
+// block's shared memory, so here the conv is an implicit product of
+// (pixels, 9 ci) by (9 ci, co), tiled like the 1x1 conv with the tap loop
+// outside the channel loop, each tap reading its shifted pixel or 0 at the
+// border (fusedconv_common.cuh). Every stride-1 shape of the model runs it:
+// there is no size gate and no switch to another path.
+//
+// What bounds it on the H100: operations at every shape of the model (18 ci
+// operations per output value against 2 + 2 bytes moved per value). K4d is
+// four launches, as K4b.
+//
+// C interface (bound with ctypes): each function returns the first
+// cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
+
+#include "fusedconv_common.cuh"
+
+using namespace corrifnet_fc;
+
+namespace {
+
+bool bad_shape(int imgs, int h, int wd, int ci, int co) {
+  return imgs <= 0 || h <= 0 || wd <= 0 || ci <= 0 || co <= 0 ||
+         (long long)imgs * h * wd >= (1LL << 31);
+}
+
+}  // namespace
+
+// x (imgs, h, wd, ci), w (3, 3, ci, co), a and b (ci,) f32, y (imgs, h, wd, co);
+// with stats: part (ceil(imgs*h*wd / 64), 2, co) f32 scratch, sq (2, co) f32.
+extern "C" int corrifnet_c3_fwd(const void* x, const void* w, const void* a,
+                                const void* b, void* y, void* part, void* sq,
+                                int imgs, int h, int wd, int ci, int co, int dtype,
+                                int stats, void* stream) {
+  if (bad_shape(imgs, h, wd, ci, co) || a == nullptr || b == nullptr ||
+      (stats != 0) != (sq != nullptr) || (stats != 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p = {};
+  p.x = x;
+  p.w = w;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.out = y;
+  p.part = static_cast<float*>(part);
+  p.n = imgs * h * wd;
+  p.ci = ci;
+  p.co = co;
+  p.h = h;
+  p.wd = wd;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = launch_forward<float, 9>(p, static_cast<float*>(sq), s);
+  else if (dtype == 1)
+    err = launch_forward<__nv_bfloat16, 9>(p, static_cast<float*>(sq), s);
+  return static_cast<int>(err);
+}
+
+// As the forward, plus y and dy (imgs, h, wd, co), ds and dq (co,) f32; outputs
+// dx (imgs, h, wd, ci), dw (3, 3, ci, co) in the storage type, dab (2, ci) f32;
+// scratch part (ceil(imgs*h*wd / 64), 2, ci) f32 and dw_part (splits, 3, 3, ci,
+// co) f32; splits * chunk >= imgs*h*wd.
+extern "C" int corrifnet_c3_bwd(const void* x, const void* w, const void* a,
+                                const void* b, const void* y, const void* dy,
+                                const void* ds, const void* dq, void* dx, void* dw,
+                                void* dab, void* part, void* dw_part, int imgs, int h,
+                                int wd, int ci, int co, int splits, int chunk,
+                                int dtype, void* stream) {
+  if (bad_shape(imgs, h, wd, ci, co) || a == nullptr || b == nullptr ||
+      dab == nullptr || part == nullptr || dw_part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p = {};
+  p.x = x;
+  p.w = w;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.y = y;
+  p.dy = dy;
+  p.ds = static_cast<const float*>(ds);
+  p.dq = static_cast<const float*>(dq);
+  p.n = imgs * h * wd;
+  p.ci = ci;
+  p.co = co;
+  p.h = h;
+  p.wd = wd;
+  p.chunk = chunk;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ab = static_cast<float*>(dab);
+  float* pt = static_cast<float*>(part);
+  float* wp = static_cast<float*>(dw_part);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = launch_backward<float, 9>(p, dx, dw, ab, pt, wp, splits, s);
+  else if (dtype == 1)
+    err = launch_backward<__nv_bfloat16, 9>(p, dx, dw, ab, pt, wp, splits, s);
+  return static_cast<int>(err);
+}

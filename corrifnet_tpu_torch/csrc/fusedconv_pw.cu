@@ -1,0 +1,94 @@
+// Fused 1x1 bottleneck convolution for Hopper (sm_90a), forward (K4a) and
+// backward (K4b), over channels-last rows:
+//     z = relu(x*a + b) (or z = x),  y = z @ w,  s = sum_rows y,  q = sum_rows y^2
+//     g = dy + ds + 2 dq y;  dw = z^T g;  dz = g w^T;  dx = [pre > 0] dz a;
+//     da = sum [pre > 0] dz x;  db = sum [pre > 0] dz
+//
+// Replaces the TPU kernels corrifnet_tpu/ops/fusedconv.py::_pw_kernel (through
+// _pw_pallas's pl.pallas_call) and ::_pw_bwd_kernel (through _pw_bwd_pallas).
+//
+// What bounds it on the H100: the model's shapes run from (37632, 64 -> 64),
+// 2 operations for every byte moved and bound by bytes, to (588, 2048 -> 512),
+// bound by operations; most of a step's time is in the shapes between. The
+// design (fusedconv_common.cuh) reads x once per 64 output columns and writes
+// y once, takes the statistics from the accumulator so that y is never read
+// back for them, and applies the previous BatchNorm and ReLU on the load so
+// that z never reaches device memory. The backward makes g on the load in
+// both of its products rather than store it. K4b is four launches: dx with
+// the da/db partial sums, their reduction, the dw partial products over
+// splits of the rows, their reduction and cast.
+//
+// C interface (bound with ctypes): each function returns the first
+// cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
+
+#include "fusedconv_common.cuh"
+
+using namespace corrifnet_fc;
+
+// x (n, ci), w (ci, co), a and b (ci,) f32 or null (relu_fma 0), y (n, co);
+// with stats: part (ceil(n/64), 2, co) f32 scratch, sq (2, co) f32 = (s, q).
+extern "C" int corrifnet_pw_fwd(const void* x, const void* w, const void* a,
+                                const void* b, void* y, void* part, void* sq, int n,
+                                int ci, int co, int dtype, int relu_fma, int stats,
+                                void* stream) {
+  if (n <= 0 || ci <= 0 || co <= 0 || (relu_fma != 0) != (a != nullptr) ||
+      (a == nullptr) != (b == nullptr) || (stats != 0) != (sq != nullptr) ||
+      (stats != 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p = {};
+  p.x = x;
+  p.w = w;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.out = y;
+  p.part = static_cast<float*>(part);
+  p.n = n;
+  p.ci = ci;
+  p.co = co;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = launch_forward<float, 1>(p, static_cast<float*>(sq), s);
+  else if (dtype == 1)
+    err = launch_forward<__nv_bfloat16, 1>(p, static_cast<float*>(sq), s);
+  return static_cast<int>(err);
+}
+
+// As the forward, plus y and dy (n, co), ds and dq (co,) f32; outputs dx
+// (n, ci), dw (ci, co) in the storage type, dab (2, ci) f32 = (da, db) with a
+// prologue; scratch part (ceil(n/64), 2, ci) f32 with a prologue and dw_part
+// (splits, ci, co) f32; splits * chunk >= n.
+extern "C" int corrifnet_pw_bwd(const void* x, const void* w, const void* a,
+                                const void* b, const void* y, const void* dy,
+                                const void* ds, const void* dq, void* dx, void* dw,
+                                void* dab, void* part, void* dw_part, int n, int ci,
+                                int co, int splits, int chunk, int dtype,
+                                int relu_fma, void* stream) {
+  if (n <= 0 || ci <= 0 || co <= 0 || (relu_fma != 0) != (a != nullptr) ||
+      (a == nullptr) != (b == nullptr) || (a != nullptr) != (dab != nullptr) ||
+      (a != nullptr && part == nullptr) || dw_part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args p = {};
+  p.x = x;
+  p.w = w;
+  p.a = static_cast<const float*>(a);
+  p.b = static_cast<const float*>(b);
+  p.y = y;
+  p.dy = dy;
+  p.ds = static_cast<const float*>(ds);
+  p.dq = static_cast<const float*>(dq);
+  p.n = n;
+  p.ci = ci;
+  p.co = co;
+  p.chunk = chunk;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ab = static_cast<float*>(dab);
+  float* pt = static_cast<float*>(part);
+  float* wp = static_cast<float*>(dw_part);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = launch_backward<float, 1>(p, dx, dw, ab, pt, wp, splits, s);
+  else if (dtype == 1)
+    err = launch_backward<__nv_bfloat16, 1>(p, dx, dw, ab, pt, wp, splits, s);
+  return static_cast<int>(err);
+}

@@ -20,6 +20,10 @@ reference's rate; 0 makes training deterministic), with the randomness of
 the ``DropoutRng`` given to ``set_dropout_rng``; every kernel runs under
 autograd (K1b and K2b in the backward).
 
+``pallas_fused_blocks=True`` runs the 48 encoder bottlenecks through the
+fused convolution kernels K4a-K4d (``models/resnet3d.py``); the parameters
+and the ``state_dict`` are the same either way.
+
 Parameters are f32; ``dtype`` is the compute dtype. Module names are the
 reference's, so ``state_dict()`` is the reference layout (dead reference
 parameters -- the per-modality decode convs and the decoder's unused
@@ -57,13 +61,14 @@ class MMVit4(nn.Module):
     (B, 3, 1, 224, 224) in f32."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 transformer_dropout: float = 0.1):
+                 transformer_dropout: float = 0.1,
+                 pallas_fused_blocks: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         dim = TRANSFORMER_DIM
         drop = transformer_dropout
         for m in MODALITIES:
-            setattr(self, f"{m}_encoder", ResNet3DEncoder())
+            setattr(self, f"{m}_encoder", ResNet3DEncoder(pallas_fused_blocks))
             setattr(self, f"{m}_encode_conv", Conv(BASIC_DIMS * 8, dim, 1))
             setattr(self, f"{m}_pos", nn.Parameter(torch.zeros(1, NUM_TOKENS, dim)))
             setattr(self, f"{m}_transformer", Transformer(dim, 1, 8, 512, drop))

@@ -14,14 +14,18 @@ __all__ = ["create_model"]
 
 
 def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,
-                 transformer_dropout: float = 0.1):
+                 transformer_dropout: float = 0.1,
+                 pallas_fused_blocks: bool = False):
     """Build ``name`` in eval mode with f32 parameters drawn from ``seed``
     (on the CPU, so weights do not depend on the device), compute dtype
-    ``dtype``, on ``device``. ``transformer_dropout`` acts in training mode."""
+    ``dtype``, on ``device``. ``transformer_dropout`` acts in training mode;
+    ``pallas_fused_blocks`` runs the encoder bottlenecks through the fused
+    convolution kernels (same parameters, same ``state_dict``)."""
     if name != "MMVit4":
         raise NotImplementedError(
             f"modeltype {name!r} is not ported to PyTorch yet; see ROADMAP.md"
         )
-    model = MMVit4(dtype=dtype, transformer_dropout=transformer_dropout)
+    model = MMVit4(dtype=dtype, transformer_dropout=transformer_dropout,
+                   pallas_fused_blocks=pallas_fused_blocks)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

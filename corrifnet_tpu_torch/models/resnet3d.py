@@ -9,14 +9,24 @@ every conv is kaiming-normal. BatchNorm follows ``module.training``.
 The JAX package's ``PackedStage1`` (three modalities packed into channels
 to fill the TPU's 128 lanes) is a layout device with the same math; the
 port runs the three encoders as three modules.
+
+``pallas_fused=True`` sends every bottleneck through the fused convolution
+kernels (``ops/fusedconv.py``), the counterpart of ``Bottleneck3D._fused``
+(``corrifnet_tpu/models/resnet3d.py:136-243``). Parameters, buffers and
+``state_dict`` keys are the same with the flag on or off. The kernels are
+channels-last, so a fused bottleneck lays its input out channels-last
+(a copy only for the first block of an encoder: every later block finds it
+so) and returns an NCDHW view of channels-last memory.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from corrifnet_tpu_torch.nn import BatchNorm, Conv, max_pool, resize_linear
+from corrifnet_tpu_torch.ops import conv3x3_fma_relu_stats, pointwise_conv_stats
 
 __all__ = ["BASIC_DIMS", "Bottleneck3D", "ResNet3DEncoder"]
 
@@ -28,8 +38,11 @@ EXPANSION = 4
 class Bottleneck3D(nn.Module):
     """1x1 reduce -> (1,3,3) spatial -> 1x1 expand, residual (mmvit4.py:196-212)."""
 
-    def __init__(self, in_channels, width, stride=1, has_downsample=False):
+    def __init__(self, in_channels, width, stride=1, has_downsample=False,
+                 pallas_fused=False):
         super().__init__()
+        self.stride = stride
+        self.pallas_fused = pallas_fused
         out = width * EXPANSION
         self.conv1 = Conv(in_channels, width, 1, bias=False)
         self.bn1 = BatchNorm(width)
@@ -46,18 +59,74 @@ class Bottleneck3D(nn.Module):
             )
 
     def forward(self, x):
+        if self.pallas_fused:
+            return self._fused(x)
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(y + identity)
 
+    def _fused(self, x):
+        """Every conv carries the previous BatchNorm's apply + ReLU in its
+        input prologue and gives its own batch statistics from its
+        accumulator (kernels K4a-K4d), step by step as
+        ``corrifnet_tpu/models/resnet3d.py:136-243``. The stride-2 conv2 of
+        layers 2-4's first block is the library conv behind a tensor-op
+        prologue, as there. In eval mode the statistics are not computed:
+        the running ones are folded."""
+        dt, train, stride = x.dtype, self.training, self.stride
+        x = x.permute(0, 2, 3, 4, 1).contiguous()  # channels-last (B, D, H, W, C)
+        bb, dd, hh, ww, _ = x.shape
+        nel1 = bb * dd * hh * ww
+        nel2 = nel1 // (stride * stride)
+
+        def pointwise(conv):
+            """(ci, co) kernel of a 1x1 conv in the compute dtype; the
+            gradient reaches the f32 parameter through the cast."""
+            return conv.weight.to(dt).flatten(1).t().contiguous()
+
+        y1, s1, q1 = pointwise_conv_stats(x, pointwise(self.conv1), stats=train)
+        a1, b1 = self.bn1.fold_sums(s1, q1, nel1)
+
+        w2 = self.conv2.weight.to(dt)[:, :, 0]  # (co, ci, 3, 3)
+        if stride == 1:
+            y2, s2, q2 = conv3x3_fma_relu_stats(
+                y1.view(bb * dd, hh, ww, -1), w2.permute(2, 3, 1, 0).contiguous(),
+                a1, b1, stats=train)
+        else:
+            z1 = torch.relu(y1 * a1.to(dt) + b1.to(dt)).view(bb * dd, hh, ww, -1)
+            y2 = F.conv2d(z1.permute(0, 3, 1, 2), w2, None, stride, 1)
+            y2 = y2.permute(0, 2, 3, 1).contiguous()
+            s2 = q2 = None
+            if train:
+                # statistics of the rounded output, as the standard path's
+                yf = y2.float().flatten(0, 2)
+                s2, q2 = yf.sum(dim=0), (yf * yf).sum(dim=0)
+        y2 = y2.view(bb, dd, *y2.shape[1:])
+        a2, b2 = self.bn2.fold_sums(s2, q2, nel2)
+
+        y3, s3, q3 = pointwise_conv_stats(y2, pointwise(self.conv3), a2, b2,
+                                          stats=train)
+        a3, b3 = self.bn3.fold_sums(s3, q3, nel2)
+
+        if self.downsample is None:
+            identity = x
+        else:
+            xd = x if stride == 1 else x[:, :, ::stride, ::stride]
+            yd, sd, qd = pointwise_conv_stats(xd, pointwise(self.downsample[0]),
+                                              stats=train)
+            ad, bd = self.downsample[1].fold_sums(sd, qd, nel2)
+            identity = yd * ad.to(dt) + bd.to(dt)
+        out = torch.relu(y3 * a3.to(dt) + b3.to(dt) + identity)
+        return out.permute(0, 4, 1, 2, 3)
+
 
 class ResNet3DEncoder(nn.Module):
     """Returns the adapted levels a1..a5 (8/16/32/64/64 channels) and the
     64-channel x6 bottleneck at 8^3 (mmvit4.py:159-194)."""
 
-    def __init__(self):
+    def __init__(self, pallas_fused=False):
         super().__init__()
         bd = BASIC_DIMS
         self.e1_c1 = Conv(1, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), bias=False)
@@ -65,9 +134,10 @@ class ResNet3DEncoder(nn.Module):
         cin = 64
         for li, (blocks, width) in enumerate(LAYERS):
             stride = 1 if li == 0 else 2
-            layer = [Bottleneck3D(cin, width, stride, has_downsample=True)]
+            layer = [Bottleneck3D(cin, width, stride, True, pallas_fused)]
             cin = width * EXPANSION
-            layer += [Bottleneck3D(cin, width) for _ in range(blocks - 1)]
+            layer += [Bottleneck3D(cin, width, pallas_fused=pallas_fused)
+                      for _ in range(blocks - 1)]
             setattr(self, f"e{li + 2}", nn.Sequential(*layer))
         level_in = (64, 256, 512, 1024, 2048)
         level_out = (bd, bd * 2, bd * 4, bd * 8, bd * 8)
@@ -80,7 +150,11 @@ class ResNet3DEncoder(nn.Module):
         feats = [max_pool(y, (1, 3, 3), (1, 2, 2), (0, 1, 1))]
         for li in range(len(LAYERS)):
             feats.append(getattr(self, f"e{li + 2}")(feats[-1]))
-        adapted = [getattr(self, f"adapt{i + 1}")(f) for i, f in enumerate(feats)]
+        # a fused stage returns channels-last memory: the narrow adapted
+        # levels go back to NCDHW here, at the encoder's edge, so everything
+        # downstream sees the layout it sees with the flag off
+        adapted = [getattr(self, f"adapt{i + 1}")(f).contiguous()
+                   for i, f in enumerate(feats)]
         # x6: every level trilinear-resized to 8^3, concatenated, 1x1 conv
         pooled = torch.cat([resize_linear(a, (8, 8, 8)) for a in adapted], dim=1)
         return (*adapted, self.conv6(pooled))

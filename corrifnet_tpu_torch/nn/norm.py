@@ -14,11 +14,29 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "InstanceNorm", "LayerNorm"]
+__all__ = ["BatchNorm", "InstanceNorm", "LayerNorm", "bn_fold",
+           "bn_update_running"]
 
 
 def _apply(x, a, b):
     return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+def bn_fold(scale, bias, mean, var, eps):
+    """Fold BN statistics and affine into the per-channel ``y = x * a + b``
+    vectors (``corrifnet_tpu/nn/norm.py:49-56``). Shared by ``BatchNorm`` and
+    the fused bottleneck, so the quirks live in one place."""
+    a = scale * torch.rsqrt(var + eps)
+    return a, bias - mean * a
+
+
+def bn_update_running(running_mean, running_var, mean, var, n, momentum):
+    """PyTorch's running update, in place (``corrifnet_tpu/nn/norm.py:59-64``):
+    ``running_var`` takes the *unbiased* batch variance while normalization
+    uses the biased one."""
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var * (n / max(n - 1, 1)), alpha=momentum)
 
 
 class BatchNorm(nn.Module):
@@ -46,21 +64,38 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def fold(self, mean=None, var=None, n=None):
+        """The ``(a, b)`` of ``y = x * a + b`` from statistics computed
+        outside the module, the counterpart of ``_BNParams``
+        (``corrifnet_tpu/nn/fusedbn.py:83-108``). Train: ``mean`` and the
+        biased ``var`` of a batch of ``n`` values per channel update the
+        running statistics and are folded. Eval: the running statistics are
+        folded and the arguments are not read."""
+        if self.training:
+            bn_update_running(self.running_mean, self.running_var, mean, var, n,
+                              self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return bn_fold(self.weight, self.bias, mean, var, self.eps)
+
+    def fold_sums(self, s, q, n):
+        """``fold`` from the per-channel sum ``s`` and sum of squares ``q``
+        of ``n`` values (``corrifnet_tpu/models/resnet3d.py:170-175``); in
+        eval mode ``s`` and ``q`` may be None."""
+        if not self.training:
+            return self.fold()
+        mean = s / n
+        return self.fold(mean, torch.clamp(q / n - mean * mean, min=0.0), n)
+
     def forward(self, x):
+        mean = var = n = None
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
             xf = x.float()
             mean = xf.mean(dim=axes)
             var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
             n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
-        else:
-            mean, var = self.running_mean, self.running_var
-        a = self.weight * torch.rsqrt(var + self.eps)
-        b = self.bias - mean * a
+        a, b = self.fold(mean, var, n)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return _apply(x, a.view(shape), b.view(shape))
 

@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from corrifnet_tpu_torch.config import load_config
+from corrifnet_tpu_torch.config import check_supported, load_config
 from corrifnet_tpu_torch.data import cross_val, load_dstl, make_batches
 from corrifnet_tpu_torch.metrics import jaccard_f1_pair
 from corrifnet_tpu_torch.models import create_model, mmvit4_state_dict_from_variables
@@ -81,12 +81,14 @@ def evaluate_run(cfg, weights=None, device="cuda"):
     ``device="cuda"`` runs the kernels; with no GPU that raises, it never
     falls back to the CPU. Returns the metric means and stds, the image
     count, the batch size and each batch's seconds."""
+    check_supported(cfg, device)
     tsind, trind, _ = cross_val(cfg.train_set_size, cfg.fno, cfg.fsiz)
     data = load_dstl(cfg.train_set_size, trind, pack_path=cfg.data_pack,
                      synthetic_seed=cfg.synthetic_seed,
                      data_dirs=cfg.data_dirs)
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
-                         seed=cfg.seed)
+                         seed=cfg.seed,
+                         pallas_fused_blocks=cfg.pallas_fused_blocks)
     if weights is not None:
         model.load_state_dict(load_weights(weights), strict=True)
     bs = max(cfg.mini_batch_size, 8)

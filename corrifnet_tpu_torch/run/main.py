@@ -13,7 +13,9 @@ Runs on the GPU unless ``--device cpu`` is given; without a GPU the default
 raises, it never falls back to the CPU. Still to be ported (see ROADMAP.md),
 and refused by the CLI when asked for: ``--resume``, ``--train-deadline-s``,
 ``--indices``, the curve PNGs, the segplot overlay and ``transfertype``
-warm starts.
+warm starts; and the config fields ``config.check_supported`` names.
+``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
+the fused convolution kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from corrifnet_tpu_torch.config import ExperimentConfig, load_config
+from corrifnet_tpu_torch.config import ExperimentConfig, check_supported, load_config
 from corrifnet_tpu_torch.data import cross_val, load_dstl
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.run.evaluate import compute_dtype
@@ -50,6 +52,7 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     if cfg.transfertype == "yestr":
         raise NotImplementedError(f"transfertype 'yestr' (warm start) {_NOT_PORTED}")
+    check_supported(cfg, device)
 
     tsind, trind, vlind = cross_val(cfg.train_set_size, cfg.fno, cfg.fsiz)
     data = load_dstl(cfg.train_set_size, trind, pack_path=cfg.data_pack,
@@ -59,7 +62,8 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
     # transfertype 'notr' re-initializes the 2-D convs with cfg.initialization
     # (F2_MAIN.py:134-157); MMVit4 has none, so its own initialization stands
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
-                         seed=cfg.seed)
+                         seed=cfg.seed,
+                         pallas_fused_blocks=cfg.pallas_fused_blocks)
     state = init_state(model, cfg.optimizer_type)
 
     d = datetime.datetime.now()

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Time and profile the port's MMVit4 evaluation forward on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10] [--out DIR]
+    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10] [--fused] [--out DIR]
 
-At 224x224, bf16 compute, random weights from seed 0:
+At 224x224, bf16 compute, random weights from seed 0 (``--fused``: with
+``pallas_fused_blocks``, the encoder bottlenecks through kernels K4a and K4c):
 
 1. images/s of the forward (median of CUDA-event timed iterations after
    warm-up), with the kernels and with every kernel wrapper swapped for
    its plain PyTorch version, in turns: plain, kernels, kernels, plain;
-2. a torch.profiler trace of a few forwards: device time by kernel name,
-   and the device's busy share of the profiled wall time (union of kernel
+2. a torch.profiler trace of a few forwards: device time by kind of kernel
+   and by kernel name, and the device's busy share of the profiled wall time (union of kernel
    intervals over the host-clock window).
 
 Writes ``profile.txt`` and ``trace.json`` under ``--out``. Fails without a GPU.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -33,13 +35,74 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
 
+
+
+def _plain_pointwise(x, w, a=None, b=None, stats=True):
+    y, s, q = ops.pointwise_conv_stats_plain(x.reshape(-1, x.shape[-1]), w, a, b)
+    return y.view(*x.shape[:-1], -1), s, q
+
+
+def _plain_conv3x3(x, w, a, b, stats=True):
+    return ops.conv3x3_fma_relu_stats_plain(x, w, a, b)
+
+
 # where each wrapper is called on the evaluation path
 _CALL_SITES = {
     "relu_instancenorm": ("corrifnet_tpu_torch.nn.conv", ops.relu_instancenorm_plain),
     "fused_attention": ("corrifnet_tpu_torch.nn.transformer", ops.attention_plain),
     "correlation_fusion": ("corrifnet_tpu_torch.models.mmvit4",
                            ops.correlation_fusion_plain),
+    "pointwise_conv_stats": ("corrifnet_tpu_torch.models.resnet3d", _plain_pointwise),
+    "conv3x3_fma_relu_stats": ("corrifnet_tpu_torch.models.resnet3d", _plain_conv3x3),
 }
+
+# kind: substrings of the kernel name, first match wins
+_KINDS = [
+    ("K2b attention backward", ("attention_bwd", "attention_delta")),
+    ("K2f attention forward", ("attention_fwd",)),
+    ("K1b correlation backward", ("corr_bwd",)),
+    ("K1f correlation forward", ("corr_fwd",)),
+    ("K3 ReLU+InstanceNorm forward", ("stats", "merge", "normalize")),
+    ("replicate padding, forward and backward", ("replication_pad",)),
+    ("trilinear up-sampling, forward and backward", ("upsample_trilinear",)),
+    ("nearest up-sampling, forward and backward", ("upsample_nearest",)),
+    ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc", "nhwc2nchw")),
+    ("convolutions (cuDNN, forward, dgrad, wgrad)",
+     ("cudnn", "conv", "xmma", "wgrad", "dgrad", "implicit_gemm", "fprop")),
+    ("matmuls", ("gemm", "cutlass", "cublas", "gemv")),
+    ("optimizer (multi-tensor Adam)", ("multi_tensor", "foreach", "adam")),
+    ("max-pool, forward and backward", ("max_pool",)),
+    ("reductions", ("reduce",)),
+    ("copies, casts, cat", ("copy", "cat", "Memcpy", "Memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized")),
+]
+# the fused convolutions' kernels (csrc/fusedconv_common.cuh) by their
+# template arguments: <T, taps, backward, ...> and <T, taps, ...>
+_K4_ROWS = re.compile(r"rows_kernel<[^,]+, *(?:\(int\))?(\d), *(?:\(bool\))?(\w+)")
+_K4_WGRAD = re.compile(r"wgrad_kernel<[^,]+, *(?:\(int\))?(\d)")
+
+
+def kind_of(name):
+    """The row of the by-kind table that a device kernel's name belongs to."""
+    m = _K4_ROWS.search(name)
+    if m:
+        backward = m.group(2) in ("1", "true")
+        pointwise = m.group(1) == "1"
+        return {(True, False): "K4a fused 1x1 conv forward",
+                (True, True): "K4b fused 1x1 conv backward (dx, da, db)",
+                (False, False): "K4c fused 3x3 conv forward",
+                (False, True): "K4d fused 3x3 conv backward (dx, da, db)"}[pointwise, backward]
+    m = _K4_WGRAD.search(name)
+    if m:
+        return ("K4b fused 1x1 conv backward (dw)" if m.group(1) == "1"
+                else "K4d fused 3x3 conv backward (dw)")
+    if "reduce_partials" in name:
+        return "K4a-d partial sums added in order"
+    low = name.lower()
+    for kind, needles in _KINDS:
+        if any(n.lower() in low for n in needles):
+            return kind
+    return "other"
 
 
 @contextlib.contextmanager
@@ -103,6 +166,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-forwards", type=int, default=3)
+    ap.add_argument("--fused", action="store_true",
+                    help="build the model with pallas_fused_blocks")
     ap.add_argument("--out", default="build/profile_eval")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -114,9 +179,11 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16"]
+    lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
+                   f"pallas_fused_blocks {args.fused}"]
 
-    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0)
+    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+                         pallas_fused_blocks=args.fused)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((args.batch, 3, 3, 224, 224), generator=gen, device="cuda")
 
@@ -144,8 +211,18 @@ def main(argv=None):
     share, busy, by_name = busy_share(trace, wall_us)
     lines.append(f"profiled {args.profile_forwards} forwards: wall {wall_us / 1e3:.3f} ms, "
                  f"device busy {busy / 1e3:.3f} ms, busy share {share:.4f}")
-    lines.append("device time by kernel name (total ms per forward, launches per forward):")
     total = sum(t for _, t in by_name.values())
+    n = args.profile_forwards
+    lines.append(f"{sum(c for c, _ in by_name.values()) // n} kernel launches and "
+                 f"{total / 1e3 / n:.3f} ms of device time per forward")
+    by_kind = {}
+    for name, (count, t) in by_name.items():
+        c0, t0 = by_kind.get(kind_of(name), (0, 0.0))
+        by_kind[kind_of(name)] = (c0 + count, t0 + t)
+    lines.append("device time by kind (ms per forward, share, launches per forward):")
+    for kind, (count, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {t / 1e3 / n:9.3f} ms {100 * t / total:5.1f}%  x{count // n:<5d} {kind}")
+    lines.append("device time by kernel name (total ms per forward, launches per forward):")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]:
         lines.append(f"  {t / 1e3 / args.profile_forwards:9.3f} ms "
                      f"{100 * t / total:5.1f}%  x{n // args.profile_forwards:<4d} {name[:140]}")

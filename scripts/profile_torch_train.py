@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time and profile the port's MMVit4 training step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10] [--out DIR]
+    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10] [--fused] [--out DIR]
 
 At 224x224, bf16 compute over f32 parameters, transformer dropout 0.1,
 BatchNorm on batch statistics, Adam, random weights from seed 0 and a random
-batch that stays on the card:
+batch that stays on the card (``--fused``: with ``pallas_fused_blocks``, the
+encoder bottlenecks through kernels K4a-K4d, each a kind of its own below):
 
 1. the step (forward, backward, optimizer) timed with CUDA events: median
    of ``--iters`` steps after warm-up, patches/s, peak memory allocated;
@@ -31,42 +32,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from profile_torch_eval import busy_share  # noqa: E402
+from profile_torch_eval import busy_share, kind_of  # noqa: E402
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
 from corrifnet_tpu_torch.nn import DropoutRng  # noqa: E402
 from corrifnet_tpu_torch.train import init_state, make_train_step  # noqa: E402
-
-# kind: substrings of the kernel name, first match wins
-_KINDS = [
-    ("K2b attention backward", ("attention_bwd", "attention_delta")),
-    ("K2f attention forward", ("attention_fwd",)),
-    ("K1b correlation backward", ("corr_bwd",)),
-    ("K1f correlation forward", ("corr_fwd",)),
-    ("K3 ReLU+InstanceNorm forward", ("stats", "merge", "normalize")),
-    ("replicate padding, forward and backward", ("replication_pad",)),
-    ("trilinear up-sampling, forward and backward", ("upsample_trilinear",)),
-    ("nearest up-sampling, forward and backward", ("upsample_nearest",)),
-    ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc", "nhwc2nchw")),
-    ("convolutions (cuDNN, forward, dgrad, wgrad)",
-     ("cudnn", "conv", "xmma", "wgrad", "dgrad", "implicit_gemm", "fprop")),
-    ("matmuls", ("gemm", "cutlass", "cublas", "gemv")),
-    ("optimizer (multi-tensor Adam)", ("multi_tensor", "foreach", "adam")),
-    ("max-pool, forward and backward", ("max_pool",)),
-    ("reductions", ("reduce",)),
-    ("copies, casts, cat", ("copy", "cat", "Memcpy", "Memset", "fill")),
-    ("elementwise", ("elementwise", "vectorized")),
-]
-
-
-def kind_of(name):
-    low = name.lower()
-    for kind, needles in _KINDS:
-        if any(n.lower() in low for n in needles):
-            return kind
-    return "other"
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
@@ -74,6 +45,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--fused", action="store_true",
+                    help="build the model with pallas_fused_blocks")
     ap.add_argument("--out", default="build/profile_train")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -86,9 +59,10 @@ def main(argv=None):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
-                   f"dropout 0.1, Adam"]
+                   f"dropout 0.1, Adam, pallas_fused_blocks {args.fused}"]
 
-    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0)
+    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+                         pallas_fused_blocks=args.fused)
     model.set_dropout_rng(DropoutRng(0, "cuda"))
     step = make_train_step(init_state(model, "Adam"))
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from corrifnet_tpu_torch import ops
+from corrifnet_tpu_torch.testing import rel_max
 
 pytestmark = pytest.mark.gpu
 
@@ -79,6 +80,102 @@ def test_attention_kernel(cuda, shape):
 def test_relu_instancenorm_kernel(cuda, shape):
     args = [_randn(shape, cuda, shift=0.2)]
     _check(ops.relu_instancenorm, ops.relu_instancenorm_plain, args, (), 1e-5, 1e-4)
+
+
+# K4: every output against the plain version as max |difference| over
+# max |plain|. f32: sums in another order (up to 37,632 rows or 9 x 512
+# channels), 2e-5. bf16: the plain version rounds at the same points with
+# f32 accumulation, so values differ by a bf16 ulp where a sum lands on
+# the other side of a rounding boundary, 1e-2; the f32 statistics see the
+# same rounded inputs, 1e-4.
+K4_F32, K4_BF16, K4_BF16_STATS = 2e-5, 1e-2, 1e-4
+
+_K4_CASES = {
+    # name: (taps, x shape, co, prologue)
+    "pw_tail_odd": (1, (48, 33), 40, True),
+    "pw_plain_small": (1, (700, 64), 256, False),
+    "pw_layer1": (1, (9408, 64), 64, False),
+    "pw_expand": (1, (588, 512), 2048, True),
+    "pw_widest": (1, (588, 2048), 512, False),
+    "c3_tail_odd": (9, (2, 7, 9, 16), 24, True),
+    "c3_layer1": (9, (3, 56, 56, 64), 64, True),
+    "c3_layer4": (9, (12, 7, 7, 512), 512, True),
+}
+
+
+def _k4_inputs(case, gen, dtype):
+    taps, xs, co, prologue = _K4_CASES[case]
+    ci = xs[-1]
+    x = _randn(xs, gen).to(dtype)
+    ws = (ci, co) if taps == 1 else (3, 3, ci, co)
+    w = (_randn(ws, gen) / (taps * ci) ** 0.5).to(dtype)
+    a = (torch.rand(ci, generator=gen, device="cuda") + 0.5) if prologue else None
+    b = 0.3 * _randn((ci,), gen) if prologue else None
+    dy = _randn((*xs[:-1], co), gen).to(dtype)
+    ds, dq = 0.3 * _randn((co,), gen), 0.01 * _randn((co,), gen)
+    return taps, (x, w, a, b), (dy, ds, dq)
+
+
+def _k4_run(fn, args, cotangents):
+    leaves = [t.detach().clone().requires_grad_() for t in args if t is not None]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, cotangents)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_K4_CASES))
+def test_fused_conv_kernels(cuda, case, dtype):
+    taps, args, cotangents = _k4_inputs(case, cuda, dtype)
+    name = "pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"
+    fwd, bwd = ops.KERNELS[name], ops.KERNELS[name + "_bwd"]
+    before = fwd.launches, bwd.launches
+    out, grads = _k4_run(fwd, args, cotangents)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+
+    x, w, a, b = args
+    want = getattr(ops, name + "_plain")(x, w, a, b)
+    want_grads = getattr(ops, name + "_backward_plain")(x, w, a, b, out[0].detach(),
+                                                        *cotangents)
+    want_grads = [g for g in want_grads if g is not None]
+    bound, stats_bound = ((K4_F32, K4_F32) if dtype == torch.float32
+                          else (K4_BF16, K4_BF16_STATS))
+    assert out[0].dtype == dtype and out[1].dtype == out[2].dtype == torch.float32
+    assert rel_max(out[0], want[0]) <= bound
+    assert rel_max(out[1], want[1]) <= stats_bound
+    assert rel_max(out[2], want[2]) <= stats_bound
+    assert len(grads) == len(want_grads)
+    for got, ref in zip(grads, want_grads):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert rel_max(got, ref) <= bound
+
+    # no atomics: a second run gives the same bits; without the statistics
+    # (evaluation) y is the same bits too
+    out2, grads2 = _k4_run(fwd, args, cotangents)
+    assert all(torch.equal(u, v) for u, v in zip((*out, *grads), (*out2, *grads2)))
+    with torch.no_grad():
+        y3, s3, q3 = fwd(x, w, a, b, stats=False)
+    assert torch.equal(y3, out[0]) and s3 is None and q3 is None
+
+
+@pytest.mark.parametrize("stride,down", [(1, False), (1, True), (2, True)])
+def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda, stride, down):
+    """One train step of a fused bottleneck in f32: output, running
+    statistics and gradients through the kernels against the plain versions
+    on the CPU, 1e-4 of each tensor's largest entry, on data with no ReLU
+    input within rounding of 0 (``testing.well_conditioned_block``)."""
+    import copy
+
+    from corrifnet_tpu_torch.models.resnet3d import Bottleneck3D
+    from corrifnet_tpu_torch.testing import block_train_step, well_conditioned_block
+
+    cin = 64 if down else 128
+    cpu, x, want, _ = well_conditioned_block(
+        lambda: Bottleneck3D(cin, 32, stride, down, pallas_fused=True),
+        (2, cin, 3, 14, 14))
+    got = block_train_step(copy.deepcopy(cpu).to("cuda"), x)
+    for key, ref in want.items():
+        assert rel_max(got[key], ref) <= 1e-4, key
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -254,10 +351,12 @@ def test_resize_nearest_gradient_on_the_card_equals_the_cpu(cuda, src, dst):
     assert err <= 1e-5 * grads["cpu"][1].abs().max().item(), err
 
 
-def test_model_forward_runs_every_kernel(cuda):
+@pytest.mark.parametrize("fused", [False, True])
+def test_model_forward_runs_every_kernel(cuda, fused):
     from corrifnet_tpu_torch.models import create_model
 
-    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda")
+    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda",
+                         pallas_fused_blocks=fused)
     for wrapper in ops.KERNELS.values():
         wrapper.launches = 0
     with torch.no_grad():
@@ -266,4 +365,6 @@ def test_model_forward_runs_every_kernel(cuda):
     assert out.shape == (2, 3, 1, 224, 224) and bool(torch.isfinite(out).all())
     assert {n: w.launches for n, w in ops.KERNELS.items()} == {
         "correlation_fusion": 1, "correlation_fusion_bwd": 0,
-        "fused_attention": 4, "fused_attention_bwd": 0, "relu_instancenorm": 27}
+        "fused_attention": 4, "fused_attention_bwd": 0, "relu_instancenorm": 27,
+        "pointwise_conv_stats": 108 * fused, "pointwise_conv_stats_bwd": 0,
+        "conv3x3_fma_relu_stats": 39 * fused, "conv3x3_fma_relu_stats_bwd": 0}

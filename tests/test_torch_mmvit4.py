@@ -130,7 +130,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                 "models.decoder", "models.jax_import", "models.mmvit4",
                 "models.registry", "models.resnet3d", "nn", "nn.conv", "nn.init",
                 "nn.norm", "nn.resize", "nn.transformer", "ops", "ops.attention",
-                "ops.build", "ops.correlation", "ops.instancenorm", "run",
+                "ops.build", "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
                 "run.evaluate", "run.main", "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
                 "train.state", "utils", "utils.logfiles"):

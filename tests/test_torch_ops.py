@@ -10,6 +10,7 @@ tensors only, and to raise for a CUDA tensor when no kernel can be built.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +18,12 @@ import torch
 
 import corrifnet_tpu.ops.attention as jax_attn
 import corrifnet_tpu.ops.correlation as jax_corr
+import corrifnet_tpu.ops.fusedconv as jax_fc
 import corrifnet_tpu.ops.instancenorm as jax_in
 from corrifnet_tpu_torch import ops
 from corrifnet_tpu_torch.ops import attention as t_attn
 from corrifnet_tpu_torch.ops import correlation as t_corr
+from corrifnet_tpu_torch.ops import fusedconv as t_fc
 from corrifnet_tpu_torch.ops import instancenorm as t_in
 
 # f32 bounds: K1 and K3 differ from the JAX paths only by the order of f32
@@ -148,6 +151,139 @@ def test_relu_instancenorm_launch_plan_covers_volume(b, n, c):
     assert b * n_chunks <= t_in._STAT_PROGRAMS
 
 
+# ---------------------------------------------------------------- K4
+
+# the JAX suite's own bounds (tests/test_fusedconv.py): f32 sums in another order
+_Y_TOL = dict(rtol=1e-5, atol=1e-5)
+_S_TOL = dict(rtol=1e-4, atol=1e-3)
+_Q_TOL = dict(rtol=1e-4, atol=1e-2)
+_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _fold(ci, seed):
+    """(a, b) of a previous BatchNorm: positive scales, small shifts."""
+    return np.abs(_normal((ci,), seed)) + 0.5, _normal((ci,), seed + 1, 0.3)
+
+
+def _t(*arrays):
+    return [None if v is None else torch.from_numpy(v) for v in arrays]
+
+
+def _j(*arrays):
+    return [None if v is None else jnp.asarray(v) for v in arrays]
+
+
+def _assert_stats_close(got, want):
+    for g, w, tol in zip(got, want, (_Y_TOL, _S_TOL, _Q_TOL)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+@pytest.mark.parametrize("n,ci,co", [(1024, 192, 768), (700, 64, 256), (48, 33, 40)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_pointwise_conv_stats_matches_pallas_interpret(n, ci, co, prologue):
+    x, w = _normal((n, ci), 0), _normal((ci, co), 1, 0.1)
+    a, b = _fold(ci, 2) if prologue else (None, None)
+    got = ops.pointwise_conv_stats(*_t(x, w, a, b))
+    with _interpret(jax_fc):
+        want = jax_fc.pointwise_conv_stats(*_j(x, w, a, b))
+    _assert_stats_close(got, want)
+
+
+@pytest.mark.parametrize("bt,h,w,ci,co", [(5, 12, 12, 32, 48), (2, 7, 9, 16, 16)])
+def test_conv3x3_fma_relu_stats_matches_pallas_interpret(bt, h, w, ci, co):
+    x, wk = _normal((bt, h, w, ci), 0), _normal((3, 3, ci, co), 1, 0.1)
+    a, b = _fold(ci, 2)
+    got = ops.conv3x3_fma_relu_stats(*_t(x, wk, a, b))
+    with _interpret(jax_fc):
+        want = jax_fc.conv3x3_fma_relu_stats(*_j(x, wk, a, b))
+    _assert_stats_close(got, want)
+
+
+_K4_GRAD_CASES = {
+    "pointwise": ("pointwise_conv_stats", (260, 48), (48, 96), False),
+    "pointwise_prologue": ("pointwise_conv_stats", (260, 48), (48, 96), True),
+    "conv3x3": ("conv3x3_fma_relu_stats", (3, 9, 9, 16), (3, 3, 16, 24), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K4_GRAD_CASES))
+def test_fused_conv_backward_matches_jax_vjp(case):
+    """The hand-written backward (the plain formula on the CPU) against
+    jax.vjp of the JAX entry point with its Pallas backward in interpret
+    mode, with non-zero cotangents for y, s and q."""
+    name, xs, ws, prologue = _K4_GRAD_CASES[case]
+    ci, co = ws[-2:]
+    x, w = _normal(xs, 0), _normal(ws, 1, 0.1)
+    a, b = _fold(ci, 2) if prologue else (None, None)
+    dy = _normal((*xs[:-1], co), 4, 0.7)
+    ds, dq = _normal((co,), 5, 0.3), _normal((co,), 6, 0.01)
+
+    leaves = [v.requires_grad_() for v in _t(x, w, a, b) if v is not None]
+    out = getattr(ops, name)(*leaves)
+    got = torch.autograd.grad(out, leaves, _t(dy, ds, dq))
+    with _interpret(jax_fc):
+        if prologue:
+            _, vjp = jax.vjp(getattr(jax_fc, name), *_j(x, w, a, b))
+        else:
+            _, vjp = jax.vjp(lambda xx, ww: getattr(jax_fc, name)(xx, ww), *_j(x, w))
+        want = vjp(tuple(_j(dy, ds, dq)))
+    assert len(got) == len(want)
+    for g, wnt, what in zip(got, want, ("dx", "dw", "da", "db")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), err_msg=what, **_GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", ["pointwise_conv_stats", "conv3x3_fma_relu_stats"])
+def test_fused_conv_bf16_matches_jax(name):
+    """bf16 storage: the rounding points (prologue in bf16, f32 accumulator,
+    statistics before y is rounded) are the JAX kernel's, so y agrees to a
+    bf16 ulp of its O(1) values (2e-2, the JAX suite's bound) and s to 2e-2
+    relative + 2.0 (sums of ~1e3 rounded products)."""
+    conv = name.startswith("conv")
+    xs, ws = ((2, 8, 8, 32), (3, 3, 32, 48)) if conv else ((2, 3, 8, 8, 64), (64, 128))
+    x = torch.from_numpy(_normal(xs, 0)).bfloat16()
+    w = torch.from_numpy(_normal(ws, 1, 0.1)).bfloat16()
+    a, b = _fold(xs[-1], 2)
+    got = getattr(ops, name)(x, w, *_t(a, b))
+    jx, jw = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (x, w))
+    with _interpret(jax_fc):
+        want = getattr(jax_fc, name)(jx, jw, *_j(a, b))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(want[0].astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=2e-2, atol=2.0)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=2e-2, atol=2.0)
+
+
+@pytest.mark.parametrize("name", ["pointwise_conv_stats", "conv3x3_fma_relu_stats"])
+def test_fused_conv_missing_cotangents_are_zeros(name):
+    conv = name.startswith("conv")
+    xs, ws = ((2, 5, 6, 8), (3, 3, 8, 12)) if conv else ((30, 8), (8, 12))
+    a, b = _fold(8, 2)
+    leaves = [v.requires_grad_() for v in _t(_normal(xs, 0), _normal(ws, 1), a, b)]
+    dy = torch.from_numpy(_normal((*xs[:-1], 12), 3))
+    y, s, q = getattr(ops, name)(*leaves)
+    only_y = torch.autograd.grad(y, leaves, dy)
+    y, s, q = getattr(ops, name)(*leaves)
+    zeros = torch.autograd.grad((y, s, q), leaves,
+                                (dy, torch.zeros_like(s), torch.zeros_like(q)))
+    for g, z in zip(only_y, zeros):
+        assert torch.equal(g, z)
+    y2, s2, q2 = getattr(ops, name)(*(v.detach() for v in leaves), stats=False)
+    assert torch.equal(y2, y) and s2 is None and q2 is None
+
+
+@pytest.mark.parametrize("rows,ci,co,taps", [
+    (37632, 64, 64, 1), (37632, 64, 256, 1), (588, 2048, 512, 1),
+    (588, 512, 2048, 1), (2352, 1024, 256, 1), (37632, 64, 64, 9), (588, 512, 512, 9),
+])
+def test_wgrad_plan_covers_the_rows(rows, ci, co, taps):
+    """The weight-gradient pass's splits tile every row exactly once."""
+    splits, chunk = t_fc.wgrad_plan(rows, ci, co, taps)
+    assert splits >= 1 and chunk % 16 == 0
+    assert (splits - 1) * chunk < rows <= splits * chunk
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -171,6 +307,22 @@ _WRAPPER_CASES = {
                         lambda: [_cuda_looking((1, 1, 64, 64))] * 3 + [0.125]),
     "relu_instancenorm": (t_in, "relu_instancenorm_plain",
                           lambda: [_cuda_looking((1, 2, 2, 2, 8))]),
+    "pointwise_conv_stats": (t_fc, "pointwise_conv_stats_plain",
+                             lambda: [_cuda_looking((4, 8)), _cuda_looking((8, 8))]),
+    "conv3x3_fma_relu_stats": (
+        t_fc, "conv3x3_fma_relu_stats_plain",
+        lambda: [_cuda_looking((1, 2, 2, 8)), _cuda_looking((3, 3, 8, 8)),
+                 _cuda_looking((8,)), _cuda_looking((8,))]),
+    "pointwise_conv_stats_bwd": (
+        t_fc, "pointwise_conv_stats_backward_plain",
+        lambda: [_cuda_looking((4, 8)), _cuda_looking((8, 8)), None, None,
+                 _cuda_looking((4, 8)), _cuda_looking((4, 8)), _cuda_looking((8,)),
+                 _cuda_looking((8,))]),
+    "conv3x3_fma_relu_stats_bwd": (
+        t_fc, "conv3x3_fma_relu_stats_backward_plain",
+        lambda: [_cuda_looking((1, 2, 2, 8)), _cuda_looking((3, 3, 8, 8)),
+                 _cuda_looking((8,)), _cuda_looking((8,)), _cuda_looking((1, 2, 2, 8)),
+                 _cuda_looking((1, 2, 2, 8)), _cuda_looking((8,)), _cuda_looking((8,))]),
 }
 
 
@@ -196,8 +348,16 @@ def test_wrapper_on_cpu_counts_no_launch(name):
         wrapper(*(torch.ones(3, 1, 2, 4) for _ in range(3)))
     elif name == "fused_attention":
         wrapper(*(torch.ones(1, 1, 64, 64) for _ in range(3)), 0.125)
-    else:
+    elif name == "relu_instancenorm":
         wrapper(torch.ones(1, 2, 2, 2, 8))
+    else:
+        conv = name.startswith("conv")
+        x = torch.ones((1, 2, 2, 8) if conv else (4, 8))
+        w = torch.ones((3, 3, 8, 8) if conv else (8, 8))
+        args = [x, w, torch.ones(8), torch.ones(8)]
+        if name.endswith("_bwd"):
+            args += [x, x, torch.ones(8), torch.ones(8)]
+        wrapper(*args)
     assert wrapper.launches == before
 
 
