@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 1. device: exit 1 when torch.cuda.is_available() is False; print the
    card's name and power limit as nvidia-smi gives them;
 2. build: compile the four CUDA C++ sources with nvcc (in parallel) and load
-   them;
+   them; ptxas's registers and spills of every kernel are printed;
 3. kernels: each kernel against its plain PyTorch version on the card,
    first in f32 (TF32 off), then in bf16 against the plain version run in
    f32 on the same bf16 inputs; errors, bounds and median CUDA-event times
@@ -20,8 +20,19 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    gradients and ``backward``: K1f, K1b, K2f with dropout 0.1 and the
    logsumexp, K2b at rate 0 and 0.1, K3. With dropout on, the plain
    version gets the kernels' Philox mask and the comparison is element by
-   element; the mask the kernels' device function writes is held against
-   ``philox_keep_mask`` exactly. The fused bottleneck convolutions K4a-K4d
+   element; the mask each of the kernels' three device functions writes is
+   held against ``philox_keep_mask`` exactly. K2f and K2b are reached as
+   the model reaches them, through ``fused_attention_qkv`` on the
+   (B, N, 3, H, 64) projection with the cotangent in (B, N, H, 64) memory,
+   so on strided views; the plain versions and SDPA get the same views. In
+   bf16 they are the tensor-core kernels: per shape they are held against
+   the plain version that rounds p and ds to bf16 where they do (2 bf16 ulps
+   of the largest entry) and against pure f32 (2e-2), timed at rate 0 and at
+   rate 0.1 with SDPA's time, the bound and the achieved TFLOP/s beside (the
+   backward also with the host's share of one launch); at every shape the
+   calls on the views must equal the calls on contiguous copies bit for bit,
+   the packed entry ``fused_attention_qkv`` the unpacked one, and two
+   backward runs each other. The fused bottleneck convolutions K4a-K4d
    run at every shape the three encoders give them at B=4 (16 pointwise
    shapes, 4 3x3 shapes), through their ``autograd.Function`` with non-zero
    cotangents for y, s and q, in f32 and bf16; two runs must give the same
@@ -37,7 +48,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    B=4, bf16, dropout 0.1) for one epoch of 8 steps over 40 synthetic
    patches, with validation by checkpoint and the test; counters reset just
    before and read just after: per training step K1f 1, K1b 1, K2f 4, K2b 4
-   (its delta, dq and dk/dv passes count as one launch), K3 27; the log
+   (its dq and dk/dv passes count as one launch), K3 27; the log
    files and both checkpoints exist; losses in the double-sigmoid band;
    step seconds, patches/s and peak memory are printed;
 6. whole model: one image (B=1) in f32 with TF32 off, through the kernels
@@ -72,6 +83,7 @@ import concurrent.futures
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -167,13 +179,19 @@ K2_ATOL = 2e-5
 K3_ATOL, K3_RTOL = 1e-5, 1e-4
 # K2 gradients: 2e-5 of the largest gradient (N-long sums of products)
 K2_GRAD_RTOL = 2e-5
-# bf16 bounds of K2: inputs rounded to bf16 meet in 2048-long sums, and the
-# outputs are rounded to bf16. The TPU kernel also rounds p to bf16 before
-# its PV and dv products; these kernels keep p in f32, the more accurate
-# side, so 2e-2 absolute on the output (values O(1)) and 2e-2 of the largest
-# gradient are generous
+# bf16 bounds of K2 against pure f32 on the same bf16 inputs: inputs rounded
+# to bf16 meet in 2048-long sums, p and ds are rounded to bf16 between the
+# two products (as in the TPU kernel) and the outputs are rounded to bf16, so
+# 2e-2 absolute on the output (values O(1)) and 2e-2 of the largest gradient
 K2_BF16_ATOL = 2e-2
 K2_BF16_GRAD_RTOL = 2e-2
+# bf16 K2 against the plain version that rounds p (forward) and p m, ds
+# (backward) to bf16 as the kernels do: 2 bf16 ulps of the reference's largest
+# entry. The kernel rounds exp(s - running max), the plain version exp(s -
+# final max), and both feed up to 2048-long f32 sums taken in another order,
+# so a result can fall on the other side of a rounding boundary; measured
+# 0.5 to 1 ulp of the largest entry at every shape and rate
+K2_ROUNDING_ULPS = 2.0
 # K4: max |kernel - plain| over max |plain|, per output. f32: sums of up to
 # 37,632 rows or 9 x 512 channels in another order. bf16: the plain version
 # rounds at the same points with f32 accumulation, so values differ by one
@@ -206,6 +224,55 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled):
+    """'name<template arguments>' from an Itanium-mangled kernel symbol: the
+    last ``<length><name>`` whose name ends in ``_kernel``, with the ``I...E``
+    that follows it when it is a template."""
+    found = mangled
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):
+            size = int(mangled[start:m.end()])
+            name = mangled[m.end():m.end() + size]
+            if len(name) == size and re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+                rest = mangled[m.end() + size:]
+                args = rest[1:rest.index("Ev")].rstrip("E") if rest.startswith("I") else ""
+                found = f"{name}<{args}>" if args else name
+    return found
+
+
+def ptxas_summary(report):
+    """'kernel: N registers, S bytes of spill stores' for each kernel of one
+    ``nvcc -Xptxas -v`` report."""
+    out, name, spills = [], None, "?"
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name, spills = kernel_name(ln.split("'")[1]), "?"
+        elif "spill stores" in ln:
+            spills = ln.split("bytes stack frame,")[1].split("bytes spill stores")[0].strip()
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers, {spills} bytes of spill stores")
+            name = None
+    return out
+
+
+def device_ms(fn, launches=20):
+    """A kernel's time on the card: ``launches`` calls queued between one pair
+    of events, so that the host's dispatch of one hides behind the run of
+    the one before (where a run is shorter than a dispatch this still reads
+    the dispatch)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def median_ms(fn, reps=10):
     fn()
     torch.cuda.synchronize()
@@ -226,6 +293,12 @@ def bf16_ulp(ref):
     _, exp = torch.frexp(ref.abs())
     ulp = torch.ldexp(torch.ones_like(ref), exp - 8)
     return torch.where(ref == 0, torch.zeros_like(ref), ulp)
+
+
+def ulps_of_max(got, ref):
+    """max |got - ref| in bf16 ulps of ref's largest entry."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / bf16_ulp(ref.abs().max())).item()
 
 
 def randn(shape, gen, shift=0.0):
@@ -353,62 +426,134 @@ def check_instancenorm(ops, tally, b, gen):
                   bytes_bound_ms(2 * x.numel()), "bytes", l_ms)
 
 
-def plain_attention_graph(ops, q, k, v, rate, keep):
-    """(output, leaves) of the plain version run in f32 under autograd."""
-    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+def unpack(qkv):
+    """The (B, H, N, 64) views q, k, v of a (B, N, 3, H, 64) tensor."""
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def packed_inputs(shape, gen):
+    """What the model hands the attention kernels at ``shape`` (B, H, N, 64):
+    the qkv projection's (B, N, 3, H, 64) output, and an output gradient that
+    is the (B, H, N, 64) view of (B, N, H, 64) memory."""
+    b, h, n, d = shape
+    return randn((b, n, 3, h, d), gen), randn((b, n, h, d), gen).permute(0, 2, 1, 3)
+
+
+def plain_attention_graph(ops, qkv, rate, keep):
+    """(output, leaves) of the plain version run in f32 under autograd on the
+    views of ``qkv``."""
+    leaves = [t.detach().float().requires_grad_() for t in unpack(qkv)]
     return ops.attention_plain(*leaves, SCALE, rate, keep), leaves
 
 
-def attention_step(ops, q, k, v, g, rate):
-    """What a training step runs: ``fused_attention`` on leaves that need
-    gradients (K2f writing the lse) and its backward (K2b on the tensors the
-    function saved). Returns the output, the leaves with their gradients,
-    and the graph's output for timing further backwards."""
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = ops.fused_attention(*leaves, SCALE, rate, PHILOX)
+def attention_step(ops, qkv, g, rate):
+    """What a training step runs: ``fused_attention_qkv`` on a projection
+    that needs a gradient (K2f writing the lse) and its backward (K2b on the
+    tensors the function saved, writing the one gradient buffer). Returns the
+    output, the leaf with its gradient, and the graph's output for timing
+    further backwards."""
+    packed = qkv.detach().clone().requires_grad_()
+    out = ops.fused_attention_qkv(packed, SCALE, rate, PHILOX)
     out.backward(g, retain_graph=True)
-    return out.detach(), leaves, out
+    return out.detach(), packed, out
+
+
+def attention_tflops(shape, products, ms):
+    b, h, n, d = shape
+    return products * 2 * b * h * n * n * d / ms / 1e9
+
+
+def host_ms(fn, launches=20):
+    """What one call of ``fn`` costs the host: ``launches`` calls queued
+    without waiting for the card, by the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    took = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return took / launches * 1e3
 
 
 def check_attention_forward(ops, tally, b, gen):
-    """K2f as the evaluation path launches it: ``fused_attention`` at rate 0
-    under ``no_grad``, so without the lse."""
+    """K2f as the evaluation path launches it: ``fused_attention_qkv`` on the
+    (B, N, 3, H, 64) projection under ``no_grad``, so on strided views, with
+    the output in (B, N, H, 64) memory and without the lse. The plain
+    versions and SDPA are given the same views. Rate 0 is what the
+    evaluation runs; rate 0.1 is held to the same bounds here because this is
+    the largest batch the kernels see."""
     name = "fused_attention"
     for shape, calls in k2_shapes(b):
-        q, k, v = (randn(shape, gen) for _ in range(3))
-        q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
+        bb, h, n, _ = shape
+        qkv, _ = packed_inputs(shape, gen)
+        qkv16 = qkv.bfloat16()
+        q, k, v = unpack(qkv)
+        q16, k16, v16 = unpack(qkv16)
+        keep = ops.philox_keep_mask(*PHILOX, bb * h, n, RATE, "cuda").view(bb, h, n, n)
         with torch.no_grad():
-            err = (ops.fused_attention(q, k, v, SCALE)
+            err = (ops.fused_attention_qkv(qkv, SCALE)
                    - ops.attention_plain(q, k, v, SCALE)).abs().max().item()
+            out16 = ops.fused_attention_qkv(qkv16, SCALE)
             ref16 = ops.attention_plain(q16.float(), k16.float(), v16.float(), SCALE)
-            e16 = (ops.fused_attention(q16, k16, v16, SCALE).float()
-                   - ref16).abs().max().item()
-            k_ms = median_ms(lambda: ops.fused_attention(q16, k16, v16, SCALE))
+            e16 = (out16.float() - ref16).abs().max().item()
+            u16 = ulps_of_max(out16, ops.attention_plain(q16, k16, v16, SCALE,
+                                                         kernel_rounding=True))
+            same = torch.equal(out16, ops.fused_attention(
+                q16.contiguous(), k16.contiguous(), v16.contiguous(), SCALE))
+            drop16 = ops.fused_attention_qkv(qkv16, SCALE, RATE, PHILOX)
+            ref16 = ops.attention_plain(q16.float(), k16.float(), v16.float(), SCALE,
+                                        RATE, keep)
+            e16d = (drop16.float() - ref16).abs().max().item()
+            u16d = ulps_of_max(drop16, ops.attention_plain(q16, k16, v16, SCALE, RATE, keep,
+                                                           kernel_rounding=True))
+            del ref16, keep
+            k_ms = median_ms(lambda: ops.fused_attention_qkv(qkv16, SCALE))
+            k_dev = device_ms(lambda: ops.fused_attention_qkv(qkv16, SCALE))
+            d_dev = device_ms(lambda: ops.fused_attention_qkv(qkv16, SCALE, RATE, PHILOX))
             p_ms = median_ms(lambda: ops.attention_plain(q16, k16, v16, SCALE))
             l_ms = median_ms(lambda: F.scaled_dot_product_attention(
                 q16, k16, v16, scale=SCALE))
+            l_dev = device_ms(lambda: F.scaled_dot_product_attention(
+                q16, k16, v16, scale=SCALE))
         tally.check(err <= K2_ATOL, f"{name} {shape} no lse f32 {err:.3e}")
         tally.check(e16 <= K2_BF16_ATOL, f"{name} {shape} no lse bf16 {e16:.3e}")
+        tally.check(u16 <= K2_ROUNDING_ULPS, f"{name} {shape} no lse bf16 {u16:.2f} ulps")
+        tally.check(e16d <= K2_BF16_ATOL, f"{name} {shape} no lse rate {RATE} bf16 {e16d:.3e}")
+        tally.check(u16d <= K2_ROUNDING_ULPS,
+                    f"{name} {shape} no lse rate {RATE} bf16 {u16d:.2f} ulps")
+        tally.check(same, f"{name} {shape} no lse bf16: packed and contiguous calls differ")
         bound, by = attention_bound_ms(shape, 2, 4, lse=False)
-        log(f"  {name} {shape} rate 0, no lse (under no_grad): f32 max_abs {err:.3e} "
-            f"(bound {K2_ATOL}); bf16 max_abs {e16:.3e} (bound {K2_BF16_ATOL}); bf16 "
-            f"kernel {k_ms:.4f} plain {p_ms:.4f} library (SDPA) {l_ms:.4f} bound "
-            f"{bound:.4f} ms ({by})")
-        tally.add(name, calls, e16, k_ms, p_ms, bound, by, l_ms)
+        log(f"  {name} {shape} as (B, N, 3, H, 64) views, rate 0, no lse (under no_grad): f32 "
+            f"max_abs {err:.3e} (bound {K2_ATOL}); bf16 max_abs {e16:.3e} against f32 (bound "
+            f"{K2_BF16_ATOL}), {u16:.2f} ulps of the largest entry against the rounding plain "
+            f"version (bound {K2_ROUNDING_ULPS}); at rate {RATE} {e16d:.3e} and {u16d:.2f} "
+            f"ulps; equal to the call on contiguous copies {same}; bf16 kernel {k_ms:.4f} (20 "
+            f"queued launches: {k_dev:.4f} each, {attention_tflops(shape, 2, k_dev):.1f} "
+            f"TFLOP/s; at rate {RATE} {d_dev:.4f}) plain {p_ms:.4f} library (SDPA) {l_ms:.4f} "
+            f"(queued: {l_dev:.4f}) bound {bound:.4f} ms ({by}); kernel / SDPA "
+            f"{k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
+        tally.add(name, calls, max(e16, e16d), k_ms, p_ms, bound, by, l_ms)
 
 
 def check_attention_step(ops, tally, b, gen, rate):
     """K2f with the lse and K2b as a training step launches them: through
-    ``fused_attention`` on leaves that need gradients and ``backward``. With
-    ``rate`` > 0 the plain version is given ``philox_keep_mask`` of the
-    kernels' Philox key. The direct call of ``fused_attention_bwd`` on a
-    separately launched forward's output and lse must give the same bits."""
+    ``fused_attention_qkv`` on a (B, N, 3, H, 64) projection that needs a
+    gradient and ``backward`` with a cotangent in (B, N, H, 64) memory, so
+    every operand is a strided view and the gradient is one buffer. The plain
+    versions and SDPA are given the same views. With ``rate`` > 0 the plain
+    version is given ``philox_keep_mask`` of the kernels' Philox key. The
+    direct call of ``fused_attention_bwd`` on a separately launched
+    forward's output and lse must give the same bits."""
     from corrifnet_tpu_torch.ops import attention as attn
 
     for shape, calls in k2_shapes(b):
         bb, h, n, _ = shape
-        q, k, v, g = (randn(shape, gen) for _ in range(4))
-        q16, k16, v16, g16 = (t.bfloat16() for t in (q, k, v, g))
+        qkv, g = packed_inputs(shape, gen)
+        qkv16, g16 = qkv.bfloat16(), g.bfloat16()
+        q, k, v = unpack(qkv)
+        q16, k16, v16 = unpack(qkv16)
         keep = None
         if rate > 0:
             keep = ops.philox_keep_mask(*PHILOX, bb * h, n, rate, "cuda").view(bb, h, n, n)
@@ -416,15 +561,15 @@ def check_attention_step(ops, tally, b, gen, rate):
         fwd, bwd = "fused_attention", "fused_attention_bwd"
 
         # f32: output and gradients through the wrapper against the plain version
-        out, leaves, _ = attention_step(ops, q, k, v, g, rate)
-        po, plain_leaves = plain_attention_graph(ops, q, k, v, rate, keep)
+        out, packed, _ = attention_step(ops, qkv, g, rate)
+        po, plain_leaves = plain_attention_graph(ops, qkv, rate, keep)
         err = (out - po.detach()).abs().max().item()
         tally.check(err <= K2_ATOL, f"{fwd} {tag} f32 {err:.3e}")
         want = torch.autograd.grad(po, plain_leaves, g)
         gerr = 0.0
-        for leaf, w in zip(leaves, want):
-            gerr = max(gerr, (leaf.grad - w).abs().max().item())
-            tally.check(((leaf.grad - w).abs() <= K2_GRAD_RTOL * w.abs().max() + 1e-6).all(),
+        for got, w in zip(unpack(packed.grad), want):
+            gerr = max(gerr, (got - w).abs().max().item())
+            tally.check(((got - w).abs() <= K2_GRAD_RTOL * w.abs().max() + 1e-6).all(),
                         f"{bwd} {tag} f32 {gerr:.3e}")
         del po, plain_leaves, want
         # the lse of a direct launch against logsumexp, and the direct
@@ -436,67 +581,148 @@ def check_attention_step(ops, tally, b, gen, rate):
         tally.check(lse_err <= 1e-5, f"{fwd} {tag} lse {lse_err:.3e}")
         direct = ops.fused_attention_bwd(q, k, v, out2, lse, g, SCALE, rate, PHILOX)
         same = torch.equal(out, out2) and all(
-            torch.equal(leaf.grad, d) for leaf, d in zip(leaves, direct))
+            torch.equal(got, d) for got, d in zip(unpack(packed.grad), direct))
         tally.check(same, f"{bwd} {tag} f32: autograd and the direct call differ")
 
-        # bf16 against the plain version in f32 on the same bf16 inputs
-        out16, leaves16, graph16 = attention_step(ops, q16, k16, v16, g16, rate)
-        po, plain_leaves = plain_attention_graph(ops, q16, k16, v16, rate, keep)
+        # bf16 against the plain version in f32 on the same bf16 inputs, and
+        # against the plain versions that round where the kernels round
+        out16, packed16, graph16 = attention_step(ops, qkv16, g16, rate)
+        grads16 = unpack(packed16.grad)
+        po, plain_leaves = plain_attention_graph(ops, qkv16, rate, keep)
         e16 = (out16.float() - po.detach()).abs().max().item()
         tally.check(e16 <= K2_BF16_ATOL, f"{fwd} {tag} bf16 {e16:.3e}")
         ref = torch.autograd.grad(po, plain_leaves, g16.float())
         ge16 = 0.0
-        for leaf, w in zip(leaves16, ref):
-            ge16 = max(ge16, (leaf.grad.float() - w).abs().max().item())
-            tally.check(((leaf.grad.float() - w).abs()
-                         <= K2_BF16_GRAD_RTOL * w.abs().max()).all(),
+        for got, w in zip(grads16, ref):
+            ge16 = max(ge16, (got.float() - w).abs().max().item())
+            tally.check(((got.float() - w).abs() <= K2_BF16_GRAD_RTOL * w.abs().max()).all(),
                         f"{bwd} {tag} bf16 {ge16:.3e}")
         del po, plain_leaves, ref
+        u16 = ulps_of_max(out16, ops.attention_plain(q16, k16, v16, SCALE, rate, keep,
+                                                     kernel_rounding=True))
+        out16b, lse16 = attn._launch_fwd(q16, k16, v16, SCALE, rate, *PHILOX, True)
+        scores = torch.einsum("bhnd,bhmd->bhnm", q16.float(), k16.float()) * SCALE
+        lse16_err = (lse16 - torch.logsumexp(scores, dim=-1)).abs().max().item()
+        del scores
+        rounded = ops.attention_backward_plain(q16, k16, v16, out16b, lse16, g16, SCALE,
+                                               rate, keep, kernel_rounding=True)
+        gu16 = max(ulps_of_max(got, w) for got, w in zip(grads16, rounded))
+        del rounded
+        direct = ops.fused_attention_bwd(q16, k16, v16, out16b, lse16, g16, SCALE, rate,
+                                         PHILOX)
+        same16 = torch.equal(out16, out16b) and all(
+            torch.equal(got, d) for got, d in zip(grads16, direct))
+        tally.check(u16 <= K2_ROUNDING_ULPS, f"{fwd} {tag} bf16 {u16:.2f} ulps")
+        tally.check(gu16 <= K2_ROUNDING_ULPS, f"{bwd} {tag} bf16 {gu16:.2f} ulps")
+        tally.check(lse16_err <= 1e-5, f"{fwd} {tag} bf16 lse {lse16_err:.3e}")
+        tally.check(same16, f"{bwd} {tag} bf16: autograd and the direct call differ")
 
-        # times, bf16: forward and backward through the wrapper, as the step runs them
-        k_ms = median_ms(lambda: ops.fused_attention(*leaves16, SCALE, rate, PHILOX))
+        # times, bf16: forward and backward through the wrapper, as the step
+        # runs them; the plain version and SDPA on the same strided views
+        k_ms = median_ms(lambda: ops.fused_attention_qkv(packed16, SCALE, rate, PHILOX))
+        k_dev = device_ms(lambda: ops.fused_attention_qkv(packed16, SCALE, rate, PHILOX))
         p_ms = median_ms(lambda: ops.attention_plain(q16, k16, v16, SCALE, rate, keep))
-        l_ms = median_ms(lambda: F.scaled_dot_product_attention(q16, k16, v16, scale=SCALE))
+        ll = [t.detach().requires_grad_() for t in (q16, k16, v16)]
+        l_ms = median_ms(lambda: F.scaled_dot_product_attention(*ll, scale=SCALE))
+        l_dev = device_ms(lambda: F.scaled_dot_product_attention(*ll, scale=SCALE))
         bound, by = attention_bound_ms(shape, 2, 4)
-        log(f"  {fwd} {tag}, lse (through autograd): f32 max_abs {err:.3e} (bound "
-            f"{K2_ATOL}), lse {lse_err:.3e} (bound 1e-5); bf16 max_abs {e16:.3e} (bound "
-            f"{K2_BF16_ATOL}); bf16 kernel {k_ms:.4f} plain {p_ms:.4f} library (SDPA, "
-            f"rate 0) {l_ms:.4f} bound {bound:.4f} ms ({by})")
+        log(f"  {fwd} {tag} as (B, N, 3, H, 64) views, lse (through autograd): f32 max_abs "
+            f"{err:.3e} (bound {K2_ATOL}), lse {lse_err:.3e} (bound 1e-5); bf16 max_abs "
+            f"{e16:.3e} against f32 (bound {K2_BF16_ATOL}), {u16:.2f} ulps of the largest "
+            f"entry against the rounding plain version (bound {K2_ROUNDING_ULPS}), lse "
+            f"{lse16_err:.3e}; bf16 kernel {k_ms:.4f} (20 queued launches: {k_dev:.4f} each, "
+            f"{attention_tflops(shape, 2, k_dev):.1f} TFLOP/s) plain {p_ms:.4f} library "
+            f"(SDPA, rate 0) {l_ms:.4f} (queued: {l_dev:.4f}) bound {bound:.4f} ms ({by}); "
+            f"kernel / SDPA {k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
         tally.add(fwd, calls, e16, k_ms, p_ms, bound, by, l_ms)
 
-        k_ms = median_ms(lambda: torch.autograd.grad(graph16, leaves16, g16, retain_graph=True))
-        lp = [t.clone().requires_grad_() for t in (q16, k16, v16)]
+        def direct_bwd():
+            return attn._launch_bwd(q16, k16, v16, out16b, lse16, g16, SCALE, rate, *PHILOX)
+
+        k_ms = median_ms(lambda: torch.autograd.grad(graph16, packed16, g16, retain_graph=True))
+        k_dev, k_host = device_ms(direct_bwd), host_ms(direct_bwd)
+        lp = [t.detach().requires_grad_() for t in (q16, k16, v16)]
         po = ops.attention_plain(*lp, SCALE, rate, keep)
         p_ms = median_ms(lambda: torch.autograd.grad(po, lp, g16, retain_graph=True))
-        ll = [t.clone().requires_grad_() for t in (q16, k16, v16)]
         lo = F.scaled_dot_product_attention(*ll, scale=SCALE)
         l_ms = median_ms(lambda: torch.autograd.grad(lo, ll, g16, retain_graph=True))
+        l_dev = device_ms(lambda: torch.autograd.grad(lo, ll, g16, retain_graph=True))
         del po, lo, graph16
         bound, by = attention_bound_ms(shape, 5, 8)
-        log(f"  {bwd} {tag} (through autograd, equal to the direct call: {same}): f32 "
-            f"max_abs {gerr:.3e} (bound {K2_GRAD_RTOL} of max|grad| + 1e-6); bf16 max_abs "
-            f"{ge16:.3e} (bound {K2_BF16_GRAD_RTOL} of max|grad|); bf16 kernel {k_ms:.4f} "
-            f"plain (autograd) {p_ms:.4f} library (SDPA backward, rate 0) {l_ms:.4f} "
-            f"bound {bound:.4f} ms ({by})")
+        log(f"  {bwd} {tag} as (B, N, 3, H, 64) views (through autograd, equal to the direct "
+            f"call: f32 {same}, bf16 {same16}): f32 max_abs {gerr:.3e} (bound {K2_GRAD_RTOL} "
+            f"of max|grad| + 1e-6); bf16 max_abs {ge16:.3e} against f32 (bound "
+            f"{K2_BF16_GRAD_RTOL} of max|grad|), {gu16:.2f} ulps of the largest entry against "
+            f"the rounding plain version (bound {K2_ROUNDING_ULPS}); bf16 kernel {k_ms:.4f} "
+            f"(20 queued launches of the wrapper's launch function: {k_dev:.4f} each, "
+            f"{attention_tflops(shape, 5, k_dev):.1f} TFLOP/s of 5 products; its host part "
+            f"{k_host:.4f}) plain (autograd) {p_ms:.4f} library (SDPA backward, rate 0) "
+            f"{l_ms:.4f} (queued, through autograd: {l_dev:.4f}) bound {bound:.4f} ms ({by}); kernel / SDPA "
+            f"{k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
         tally.add(bwd, calls, ge16, k_ms, p_ms, bound, by, l_ms)
+
+
+def check_attention_strided(ops, tally, b, gen):
+    """At each attention shape, the kernels on the (B, H, N, 64) views of a
+    (B, N, 3, H, 64) qkv tensor and a (B, N, H, 64) cotangent against the
+    same calls on contiguous copies, and ``fused_attention_qkv`` against
+    ``fused_attention``, under autograd with dropout: equal bits; two
+    backward runs: equal bits."""
+    from corrifnet_tpu_torch.ops import attention as attn
+
+    for (_, h, n, _), _ in k2_shapes(b):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, g = (t.to(dtype) for t in packed_inputs((b, h, n, 64), gen))
+            views = unpack(qkv)
+            copies = [t.contiguous() for t in views]
+            o1, l1 = attn._launch_fwd(*views, SCALE, RATE, *PHILOX, True)
+            o2, l2 = attn._launch_fwd(*copies, SCALE, RATE, *PHILOX, True)
+            g1 = ops.fused_attention_bwd(*views, o1, l1, g, SCALE, RATE, PHILOX)
+            g2 = ops.fused_attention_bwd(*copies, o2.contiguous(), l2, g.contiguous(), SCALE,
+                                         RATE, PHILOX)
+            g3 = ops.fused_attention_bwd(*views, o1, l1, g, SCALE, RATE, PHILOX)
+            strided = (torch.equal(o1, o2) and torch.equal(l1, l2)
+                       and all(torch.equal(a, c) for a, c in zip(g1, g2)))
+            repeat = all(torch.equal(a, c) for a, c in zip(g1, g3))
+            packed = qkv.clone().requires_grad_()
+            out_p = ops.fused_attention_qkv(packed, SCALE, RATE, PHILOX)
+            out_p.backward(g)
+            leaves = [t.clone().requires_grad_() for t in views]
+            out_u = ops.fused_attention(*leaves, SCALE, RATE, PHILOX)
+            out_u.backward(g)
+            unpacked = torch.stack([t.grad for t in leaves]).permute(1, 3, 0, 2, 4)
+            same = torch.equal(out_p, out_u) and torch.equal(packed.grad, unpacked)
+            no_copy = (out_p.transpose(1, 2).reshape(b, n, h * 64).data_ptr()
+                       == out_p.data_ptr() and packed.grad.is_contiguous())
+            log(f"  attention on strided (B, N, 3, H, 64) views, B={b} N={n} {dtype}: equal "
+                f"to the contiguous call {strided}; backward repeatable {repeat}; "
+                f"fused_attention_qkv equal to fused_attention {same}; output and gradient "
+                f"need no layout copy {no_copy}")
+            tally.check(strided, f"attention strided != contiguous N={n} {dtype}")
+            tally.check(repeat, f"attention backward not repeatable N={n} {dtype}")
+            tally.check(same, f"fused_attention_qkv != fused_attention N={n} {dtype}")
+            tally.check(no_copy, f"attention output or gradient layout N={n} {dtype}")
 
 
 def check_keep_mask(ops, tally):
     from corrifnet_tpu_torch.ops.attention import kernel_keep_mask
 
     n, count, bh0 = 2048, 3, 13
-    got = kernel_keep_mask(*PHILOX, bh0, count, n, RATE)
     want = ops.philox_keep_mask(*PHILOX, count, n, RATE, "cuda", bh0=bh0)
-    same = torch.equal(got, want)
-    rate = got.float().mean().item()
-    sigma = (RATE * (1 - RATE) / got.numel()) ** 0.5
-    log(f"  keep mask ({count}, {n}, {n}) from the kernel's device function equals "
-        f"philox_keep_mask: {same}; keep rate {rate:.6f} (0.9 +- 4 sigma = "
-        f"{4 * sigma:.6f}); rows differ between heads: "
-        f"{not torch.equal(got[0], got[1])}")
-    tally.check(same, "keep mask differs from philox_keep_mask")
+    for layout in ("tile", "rows", "cols"):
+        got = kernel_keep_mask(*PHILOX, bh0, count, n, RATE, layout=layout)
+        same = torch.equal(got, want)
+        log(f"  keep mask ({count}, {n}, {n}) from the kernels' device function "
+            f"'{layout}' equals philox_keep_mask: {same}")
+        tally.check(same, f"keep mask '{layout}' differs from philox_keep_mask")
+    rate = want.float().mean().item()
+    sigma = (RATE * (1 - RATE) / want.numel()) ** 0.5
+    log(f"  keep rate {rate:.6f} (0.9 +- 4 sigma = {4 * sigma:.6f}); rows differ "
+        f"between heads: {not torch.equal(want[0], want[1])}")
     tally.check(abs(rate - (1 - RATE)) <= 4 * sigma, f"keep rate {rate}")
-    tally.check(not torch.equal(got[0], got[1]), "keep mask repeats across heads")
+    tally.check(not torch.equal(want[0], want[1]), "keep mask repeats across heads")
 
 
 def rel_max(got, want):
@@ -690,6 +916,9 @@ def phase_kernels(ops):
     rate0.report(f"B={TRAIN_B} rate 0")
     check_attention_step(ops, step, TRAIN_B, gen, RATE)
     check_keep_mask(ops, step)
+    # inputs from a generator of its own, as K4's: K3 sees what it saw before
+    check_attention_strided(ops, step, TRAIN_B,
+                            torch.Generator(device="cuda").manual_seed(2))
     check_instancenorm(ops, step, TRAIN_B, gen)
     log(f" fused bottleneck convolutions at the encoders' shapes (B={TRAIN_B}), "
         f"calls per step over the three encoders:")
@@ -1022,9 +1251,7 @@ def main():
     log(f"  nvcc build + load of {len(CUDA_SOURCES)} sources "
         f"{time.perf_counter() - t0:.2f} s")
     for report in sorted(BUILD_DIR.glob("*.log")):
-        summary = [ln for ln in report.read_text().splitlines()
-                   if "registers" in ln or "spill" in ln]
-        log(f"  {report.name}: " + " | ".join(s.strip() for s in summary))
+        log(f"  {report.name}: " + "; ".join(ptxas_summary(report.read_text())))
 
     log("phase 3: kernels against their plain versions")
     t0 = time.perf_counter()

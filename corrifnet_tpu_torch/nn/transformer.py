@@ -24,7 +24,7 @@ from torch import nn
 
 from corrifnet_tpu_torch.nn.conv import Dense
 from corrifnet_tpu_torch.nn.norm import LayerNorm
-from corrifnet_tpu_torch.ops import fused_attention
+from corrifnet_tpu_torch.ops import fused_attention_qkv
 
 __all__ = ["DropoutRng", "SelfAttention", "FeedForward", "Transformer"]
 
@@ -87,7 +87,8 @@ class _Dropout(nn.Module):
 class SelfAttention(nn.Module):
     """qkv Linear without bias, head_dim**-0.5 scale, softmax with dropout
     on the probabilities, output projection with bias, ``proj_drop``
-    (mmvit4.py:295-315)."""
+    (mmvit4.py:295-315). No layout copy surrounds the kernels: see
+    ``ops.attention.fused_attention_qkv``."""
 
     def __init__(self, dim: int, heads: int = 8, state: _DropoutState = None):
         super().__init__()
@@ -100,11 +101,12 @@ class SelfAttention(nn.Module):
     def forward(self, x):
         b, n, c = x.shape
         h = self.heads
-        qkv = self.qkv(x).reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)
+        qkv = self.qkv(x).reshape(b, n, 3, h, c // h)
         rate, rng = self.state.active(self.training)
         philox = rng.philox_key() if rate > 0.0 else None
-        out = fused_attention(q, k, v, (c // h) ** -0.5, rate, philox)
+        # the kernels read q, k, v from the projection's output in place and
+        # write (B, N, H, D) memory, so the reshape below is a view on the card
+        out = fused_attention_qkv(qkv, (c // h) ** -0.5, rate, philox)
         return self.proj_drop(self.proj(out.transpose(1, 2).reshape(b, n, c)))
 
 

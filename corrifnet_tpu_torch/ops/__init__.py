@@ -12,9 +12,11 @@ launches its kernel or raises, and counts its launches in
 """
 
 from corrifnet_tpu_torch.ops.attention import (
+    attention_backward_plain,
     attention_plain,
     fused_attention,
     fused_attention_bwd,
+    fused_attention_qkv,
     philox_keep_mask,
 )
 from corrifnet_tpu_torch.ops.correlation import (
@@ -41,6 +43,7 @@ from corrifnet_tpu_torch.ops.instancenorm import (
 
 __all__ = [
     "KERNELS",
+    "attention_backward_plain",
     "attention_plain",
     "conv3x3_fma_relu_stats",
     "conv3x3_fma_relu_stats_backward_plain",
@@ -52,6 +55,7 @@ __all__ = [
     "correlation_fusion_plain",
     "fused_attention",
     "fused_attention_bwd",
+    "fused_attention_qkv",
     "philox_keep_mask",
     "pointwise_conv_stats",
     "pointwise_conv_stats_backward_plain",

@@ -82,15 +82,16 @@ def check_resize():
 def with_plain_versions(fn):
     """Run ``fn`` with the model's three kernel wrappers replaced by their
     plain versions (dropout is 0 here)."""
-    saved = conv.relu_instancenorm, transformer.fused_attention, mmvit4.correlation_fusion
+    saved = conv.relu_instancenorm, transformer.fused_attention_qkv, mmvit4.correlation_fusion
     conv.relu_instancenorm = ops.relu_instancenorm_plain
-    transformer.fused_attention = (
-        lambda q, k, v, scale, rate=0.0, philox=None: ops.attention_plain(q, k, v, scale))
+    transformer.fused_attention_qkv = (
+        lambda qkv, scale, rate=0.0, philox=None: ops.attention_plain(
+            *qkv.permute(2, 0, 3, 1, 4).unbind(0), scale))
     mmvit4.correlation_fusion = ops.correlation_fusion_plain
     try:
         return fn()
     finally:
-        conv.relu_instancenorm, transformer.fused_attention, mmvit4.correlation_fusion = saved
+        conv.relu_instancenorm, transformer.fused_attention_qkv, mmvit4.correlation_fusion = saved
 
 
 def reference_gradients(model, x, masks, valid):

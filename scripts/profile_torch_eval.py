@@ -46,10 +46,14 @@ def _plain_conv3x3(x, w, a, b, stats=True):
     return ops.conv3x3_fma_relu_stats_plain(x, w, a, b)
 
 
+def _plain_attention_qkv(qkv, scale, rate=0.0, philox=None):
+    return ops.attention_plain(*qkv.permute(2, 0, 3, 1, 4).unbind(0), scale)
+
+
 # where each wrapper is called on the evaluation path
 _CALL_SITES = {
     "relu_instancenorm": ("corrifnet_tpu_torch.nn.conv", ops.relu_instancenorm_plain),
-    "fused_attention": ("corrifnet_tpu_torch.nn.transformer", ops.attention_plain),
+    "fused_attention_qkv": ("corrifnet_tpu_torch.nn.transformer", _plain_attention_qkv),
     "correlation_fusion": ("corrifnet_tpu_torch.models.mmvit4",
                            ops.correlation_fusion_plain),
     "pointwise_conv_stats": ("corrifnet_tpu_torch.models.resnet3d", _plain_pointwise),

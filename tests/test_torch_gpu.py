@@ -8,7 +8,8 @@ jax, so it runs on a machine without it, from the root of the checkout:
 
 Bounds as in chip_smoke.py: f32 against the plain version in f32 (sums in
 another order); bf16 against the plain version run in f32 on the same
-bf16 inputs. Dropout is compared element by element: the plain version is
+bf16 inputs, and for the attention kernels also against the plain version
+that rounds where they round. Dropout is compared element by element: the plain version is
 given ``philox_keep_mask`` of the key the kernel is given.
 """
 
@@ -182,6 +183,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = _randn((1, 1, 64, 64), cuda)
     with pytest.raises(ValueError):
         ops.fused_attention(x, x, x.transpose(2, 3), 0.125)  # not contiguous
+    with pytest.raises(ValueError):  # rows start 8 bytes into a 16-byte line
+        ops.fused_attention(x, x, _randn((1, 1, 64, 72), cuda)[..., 2:66], 0.125)
     with pytest.raises(ValueError):
         ops.fused_attention(*(_randn((1, 1, 64, 32), cuda) for _ in range(3)), 0.125)
     with pytest.raises(ValueError):
@@ -263,6 +266,88 @@ def test_attention_forward_backward_kernels(cuda, shape, rate):
         assert bool(((leaf.grad.float() - ref).abs() <= 2e-2 * ref.abs().max()).all())
 
 
+def _ulps_of_max(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / _bf16_ulp(ref.abs().max())).item()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(4, 8, 512, 64), (4, 8, 2048, 64), (8, 8, 2048, 64)])
+def test_attention_bf16_tensor_core_kernels(cuda, shape, rate, packed):
+    """The bf16 instantiations of K2f and K2b at the model's two shapes, at
+    the training and the evaluation batch, on contiguous tensors and
+    (``packed``) as the model launches them, on the strided views of a
+    (B, N, 3, H, 64) projection with a cotangent in (B, N, H, 64) memory:
+    within 2 bf16 ulps of the largest entry of the plain versions that round p
+    and ds where the kernels do, within 2e-2 of pure f32 on the same inputs,
+    the lse within 1e-5."""
+    from corrifnet_tpu_torch.ops import attention as t_attn
+
+    b, h, n, _ = shape
+    if packed:
+        q, k, v = _randn((b, n, 3, h, 64), cuda).bfloat16().permute(2, 0, 3, 1, 4).unbind(0)
+        g = _randn((b, n, h, 64), cuda).bfloat16().permute(0, 2, 1, 3)
+    else:
+        q, k, v, g = (_randn(shape, cuda).bfloat16() for _ in range(4))
+    philox = (4321, 9)
+    keep = None
+    if rate > 0:
+        keep = ops.philox_keep_mask(*philox, b * h, n, rate, "cuda").view(b, h, n, n)
+    out, lse = t_attn._launch_fwd(q, k, v, 0.125, rate, *philox, True)
+    rounded = ops.attention_plain(q, k, v, 0.125, rate, keep, kernel_rounding=True)
+    exact = ops.attention_plain(q.float(), k.float(), v.float(), 0.125, rate, keep)
+    assert _ulps_of_max(out, rounded) <= 2.0
+    assert (out.float() - exact).abs().max().item() <= 2e-2
+    scores = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * 0.125
+    assert (lse - torch.logsumexp(scores, dim=-1)).abs().max().item() <= 1e-5
+    del scores, rounded, exact
+    grads = ops.fused_attention_bwd(q, k, v, out, lse, g, 0.125, rate, philox)
+    rounded = ops.attention_backward_plain(q, k, v, out, lse, g, 0.125, rate, keep,
+                                           kernel_rounding=True)
+    for got, want in zip(grads, rounded):
+        assert _ulps_of_max(got, want) <= 2.0
+    del rounded
+    exact = ops.attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                         g.float(), 0.125, rate, keep)
+    for got, want in zip(grads, exact):
+        assert (got.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("b,n", [(2, 512), (4, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_on_strided_views_equals_contiguous(cuda, dtype, b, n):
+    """Both kernels on the (B, H, N, 64) views of a (B, N, 3, H, 64) tensor
+    with a (B, N, H, 64) cotangent against contiguous copies, and
+    fused_attention_qkv against fused_attention under autograd with dropout:
+    equal bits; the output and the gradient are laid out so that the
+    surrounding reshapes are views."""
+    from corrifnet_tpu_torch.ops import attention as t_attn
+
+    h, philox = 8, (11, 12)
+    qkv = _randn((b, n, 3, h, 64), cuda).to(dtype)
+    g = _randn((b, n, h, 64), cuda).to(dtype).permute(0, 2, 1, 3)
+    views = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    copies = [t.contiguous() for t in views]
+    o1, l1 = t_attn._launch_fwd(*views, 0.125, 0.1, *philox, True)
+    o2, l2 = t_attn._launch_fwd(*copies, 0.125, 0.1, *philox, True)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    g1 = ops.fused_attention_bwd(*views, o1, l1, g, 0.125, 0.1, philox)
+    g2 = ops.fused_attention_bwd(*copies, o2.contiguous(), l2, g.contiguous(), 0.125, 0.1,
+                                 philox)
+    assert all(torch.equal(a, c) for a, c in zip(g1, g2))
+    packed = qkv.clone().requires_grad_()
+    f0, b0 = ops.fused_attention.launches, ops.fused_attention_bwd.launches
+    out_p = ops.fused_attention_qkv(packed, 0.125, 0.1, philox)
+    out_p.backward(g)
+    assert ops.fused_attention.launches == f0 + 1
+    assert ops.fused_attention_bwd.launches == b0 + 1
+    assert torch.equal(out_p, o1) and packed.grad.is_contiguous()
+    assert all(torch.equal(a, c)
+               for a, c in zip(packed.grad.permute(2, 0, 3, 1, 4).unbind(0), g1))
+    assert out_p.transpose(1, 2).reshape(b, n, h * 64).data_ptr() == out_p.data_ptr()
+
+
 def test_attention_backward_is_bitwise_repeatable(cuda):
     shape = (2, 8, 512, 64)
     q, k, v, g = (_randn(shape, cuda).bfloat16() for _ in range(4))
@@ -276,13 +361,16 @@ def test_attention_backward_is_bitwise_repeatable(cuda):
         assert torch.equal(a, b)
 
 
-def test_kernel_keep_mask_equals_philox_keep_mask(cuda):
-    """The mask the kernels' device function writes, against the plain
-    PyTorch Philox: exact; keep rate within 4 sigma of 0.9."""
+@pytest.mark.parametrize("layout", ["tile", "rows", "cols"])
+def test_kernel_keep_mask_equals_philox_keep_mask(cuda, layout):
+    """The mask each of the kernels' device functions writes (the f32
+    kernels' byte tile, the bf16 forward's and dq pass's register bits, the
+    bf16 dk/dv pass's 16-bit words), against the plain PyTorch Philox: exact;
+    keep rate within 4 sigma of 0.9."""
     from corrifnet_tpu_torch.ops.attention import kernel_keep_mask
 
     n, rate = 512, 0.1
-    got = kernel_keep_mask(99, 3, 5, 2, n, rate)
+    got = kernel_keep_mask(99, 3, 5, 2, n, rate, layout=layout)
     want = ops.philox_keep_mask(99, 3, 2, n, rate, "cuda", bh0=5)
     assert torch.equal(got, want)
     sigma = (rate * (1 - rate) / got.numel()) ** 0.5

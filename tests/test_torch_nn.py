@@ -273,6 +273,31 @@ def test_transformer_matches_jax():
     np.testing.assert_allclose(_run_torch(tr, x, pos), want, atol=CONV_ATOL, rtol=0)
 
 
+def test_self_attention_hands_the_projection_over_without_copies(monkeypatch):
+    """SelfAttention gives the attention entry point the qkv projection's
+    output itself, as its (B, N, 3, H, D) view: no permuted copy of q, k or v
+    is made on the way in."""
+    from corrifnet_tpu_torch.nn import transformer
+
+    seen = []
+    real = transformer.fused_attention_qkv
+
+    def spy(qkv, *args, **kwargs):
+        seen.append(qkv)
+        return real(qkv, *args, **kwargs)
+
+    monkeypatch.setattr(transformer, "fused_attention_qkv", spy)
+    attn = _init(transformer.SelfAttention(128, heads=2), seed=30)
+    projected = []
+    attn.qkv.register_forward_hook(lambda mod, args, out: projected.append(out))
+    x = torch.from_numpy(_normal((2, 64, 128), 31))
+    out = attn(x)
+    assert out.shape == (2, 64, 128)
+    (qkv,), (lin,) = seen, projected
+    assert qkv.shape == (2, 64, 3, 2, 64) and qkv.is_contiguous()
+    assert qkv.data_ptr() == lin.data_ptr()
+
+
 @pytest.mark.parametrize("stride,has_down", [(1, True), (2, True), (1, False)])
 def test_bottleneck3d_matches_jax(stride, has_down):
     from corrifnet_tpu.models.resnet3d import Bottleneck3D as JB

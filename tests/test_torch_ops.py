@@ -108,6 +108,166 @@ def test_attention_plain_matches_pallas_interpret(n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_ATOL, rtol=0)
 
 
+def _packed_qkv(b, n, h, seed, dtype=torch.float32):
+    """A (B, N, 3, H, 64) tensor as the qkv projection gives it, and its
+    (B, H, N, 64) views q, k, v."""
+    qkv = torch.from_numpy(_normal((b, n, 3, h, 64), seed)).to(dtype)
+    return qkv, qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_on_strided_views_equals_contiguous(rate):
+    """fused_attention and fused_attention_bwd on the strided (B, H, N, 64)
+    views of a (B, N, 3, H, 64) tensor, with a (B, N, H, 64) cotangent,
+    against the same calls on contiguous copies, and fused_attention_qkv
+    against fused_attention under autograd: equal bits on the CPU."""
+    b, n, h = 2, 128, 2
+    qkv, views = _packed_qkv(b, n, h, 30)
+    assert not any(t.is_contiguous() for t in views)
+    g = torch.from_numpy(_normal((b, n, h, 64), 31)).permute(0, 2, 1, 3)
+    copies = [t.contiguous() for t in views]
+    philox = (7, 8) if rate else None
+    out = ops.fused_attention(*views, 0.125, rate, philox)
+    assert torch.equal(out, ops.fused_attention(*copies, 0.125, rate, philox))
+    got = ops.fused_attention_bwd(*views, out, None, g, 0.125, rate, philox)
+    want = ops.fused_attention_bwd(*copies, out, None, g.contiguous(), 0.125, rate, philox)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    packed = qkv.clone().requires_grad_()
+    out_p = ops.fused_attention_qkv(packed, 0.125, rate, philox)
+    assert out_p.shape == (b, h, n, 64) and torch.equal(out_p, out)
+    out_p.backward(g)
+    assert packed.grad.shape == qkv.shape
+    for a, w in zip(packed.grad.permute(2, 0, 3, 1, 4).unbind(0), want):
+        assert torch.equal(a, w)
+
+
+def test_attention_qkv_rejects_other_shapes():
+    with pytest.raises(ValueError, match=r"\(B, N, 3, H, D\)"):
+        ops.fused_attention_qkv(torch.zeros(1, 64, 2, 1, 64), 0.125)
+    with pytest.raises(ValueError, match=r"\(B, N, 3, H, D\)"):
+        ops.fused_attention_qkv(torch.zeros(1, 1, 64, 64), 0.125)
+
+
+def _bad_attention_operands(case):
+    good = torch.zeros(1, 2, 128, 64)
+    if case == "last dimension not contiguous":
+        return [good, good, good.transpose(2, 3).contiguous().transpose(2, 3)]
+    if case == "misaligned view":  # starts 8 bytes into a 16-byte row
+        return [good, good, torch.zeros(1, 2, 128, 72)[..., 2:66]]
+    if case == "row stride off the 16-byte grid":  # 68 bf16 = 136 bytes
+        wide = torch.zeros(1, 2, 128, 68, dtype=torch.bfloat16)[..., :64]
+        return [wide, wide, wide]
+    if case == "head_dim 32":
+        return [torch.zeros(1, 2, 128, 32)] * 3
+    if case == "N not a multiple of the tile":
+        return [torch.zeros(1, 2, 96, 64)] * 3
+    if case == "mixed dtypes":
+        return [good, good, good.bfloat16()]
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "last dimension not contiguous", "misaligned view", "row stride off the 16-byte grid",
+    "head_dim 32", "N not a multiple of the tile", "mixed dtypes"])
+def test_attention_check_rejects(case):
+    """What the kernels do not take still raises; the check itself needs no
+    card."""
+    with pytest.raises(ValueError):
+        t_attn._check(*_bad_attention_operands(case))
+
+
+def test_attention_check_accepts_strided_views():
+    for dtype in (torch.float32, torch.bfloat16):
+        _, views = _packed_qkv(2, 64, 8, 32, dtype)
+        t_attn._check(*views)
+        out = torch.empty(2, 64, 8, 64, dtype=dtype).permute(0, 2, 1, 3)
+        t_attn._check(*views, out)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_backward_plain_is_autograd_of_the_plain_forward(rate):
+    """The explicit backward formulas (what K2b computes) against autograd
+    through attention_plain, in f32: 2e-6 (sums in another order); and with
+    the kernel's rounding points switched on in f32, where rounding to f32
+    changes nothing: the same bound."""
+    b, h, n = 2, 2, 128
+    q, k, v, g = (torch.from_numpy(_normal((b, h, n, 64), 40 + i)) for i in range(4))
+    keep = t_attn.philox_keep_mask(5, 6, b * h, n, rate).view(b, h, n, n) if rate else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.attention_plain(*leaves, 0.125, rate, keep)
+    want = torch.autograd.grad(out, leaves, g)
+    for rounding in (False, True):
+        o = ops.attention_plain(q, k, v, 0.125, rate, keep, kernel_rounding=rounding)
+        np.testing.assert_allclose(o.numpy(), out.detach().numpy(), atol=2e-6, rtol=0)
+        got = ops.attention_backward_plain(q, k, v, o, None, g, 0.125, rate, keep,
+                                           kernel_rounding=rounding)
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), w.numpy(), atol=2e-6, rtol=0)
+
+
+def _bf16_ulp_of_max(x):
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_attention_bf16_rounding_plain_matches_jax_bf16_kernel(n):
+    """bf16 storage, rate 0: the plain versions with the GPU kernels'
+    rounding points (``kernel_rounding=True``) against the Pallas forward and
+    backward kernels in interpret mode on the same bf16 bits (f32 values from
+    a numpy seed, rounded to bf16 once).
+
+    The rounding points are not the TPU kernel's: it rounds the normalised p,
+    folds the scale into a rounded k and takes ds from the rounded p
+    (attention.py:313, 342, 354), where the GPU kernels round the
+    unnormalised p, scale in f32 at the end and take ds from the f32 p. Both
+    sides return bf16, so they differ by whole ulps: measured at most 1.5 bf16
+    ulps of the largest entry (dk at n=128); the bound is 2. And the port is
+    no further from attention_xla in f32 on the same inputs than the JAX bf16
+    kernel itself is: within a factor 1.25 (measured 0.4 to 1.01)."""
+    tensors = [torch.from_numpy(_normal((1, 2, n, 64), 150 + i)).bfloat16() for i in range(4)]
+    q, k, v, g = tensors
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in tensors)
+    with _interpret(jax_attn):
+        out_j, vjp = jax.vjp(lambda a, b, c: jax_attn.fused_attention(a, b, c, 0.125),
+                             jq, jk, jv)
+        grads_j = vjp(jg)
+    out_x, vjp_x = jax.vjp(lambda a, b, c: jax_attn.attention_xla(a, b, c, 0.125),
+                           *(a.astype(jnp.float32) for a in (jq, jk, jv)))
+    grads_x = vjp_x(jg.astype(jnp.float32))
+    out_t = ops.attention_plain(q, k, v, 0.125, kernel_rounding=True)
+    grads_t = ops.attention_backward_plain(q, k, v, out_t, None, g, 0.125,
+                                           kernel_rounding=True)
+    assert out_t.dtype == torch.bfloat16 and out_j.dtype == jnp.bfloat16
+    names = ("out", "dq", "dk", "dv")
+    for name, t, j, x in zip(names, (out_t, *grads_t), (out_j, *grads_j), (out_x, *grads_x)):
+        t = t.float().numpy()
+        j, x = np.asarray(j.astype(jnp.float32)), np.asarray(x)
+        ulp = _bf16_ulp_of_max(x)
+        assert np.abs(t - j).max() <= 2 * ulp, (name, np.abs(t - j).max(), ulp)
+        assert np.abs(t - x).max() <= 1.25 * np.abs(j - x).max(), name
+
+
+def test_attention_bf16_rounding_plain_with_dropout_stays_near_f32():
+    """Rate 0.1 in bf16 under one keep mask: the rounding plain versions
+    against the same formulas in f32 on the same bf16 inputs, 2e-2 absolute on
+    the output and 2e-2 of the largest gradient: the bounds the bf16 kernels
+    are held to against f32 on the card."""
+    rate, n = 0.1, 128
+    q, k, v, g = (torch.from_numpy(_normal((2, 2, n, 64), 160 + i)).bfloat16()
+                  for i in range(4))
+    keep = t_attn.philox_keep_mask(21, 22, 4, n, rate).view(2, 2, n, n)
+    out = ops.attention_plain(q, k, v, 0.125, rate, keep, kernel_rounding=True)
+    ref = ops.attention_plain(q.float(), k.float(), v.float(), 0.125, rate, keep)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    got = ops.attention_backward_plain(q, k, v, out, None, g, 0.125, rate, keep,
+                                       kernel_rounding=True)
+    want = ops.attention_backward_plain(q.float(), k.float(), v.float(), ref, None,
+                                        g.float(), 0.125, rate, keep)
+    for a, w in zip(got, want):
+        assert (a.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
 # ---------------------------------------------------------------- K3
 
 # channel counts of the decoder (8..192) and 20, a partial 8-channel tile
