@@ -8,7 +8,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 1. device: exit 1 when torch.cuda.is_available() is False; print the
    card's name and power limit as nvidia-smi gives them;
 2. build: compile the four CUDA C++ sources with nvcc (in parallel) and load
-   them; ptxas's registers and spills of every kernel are printed;
+   them; ptxas's registers and spills of every kernel are printed, and the
+   HGMMA (wgmma) instructions of every bf16 tensor-core kernel in the SASS
+   (``cuobjdump -sass``), none of which may have none;
 3. kernels: each kernel against its plain PyTorch version on the card,
    first in f32 (TF32 off), then in bf16 against the plain version run in
    f32 on the same bf16 inputs; errors, bounds and median CUDA-event times
@@ -39,7 +41,11 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    bits, and the evaluation variant without statistics the same y (that
    variant is also timed at the B=8 shapes); their
    library yardstick is ``F.linear``/``F.conv2d`` with the BatchNorm apply,
-   ReLU and statistics in tensor ops;
+   ReLU and statistics in tensor ops. In bf16 the forwards K4a and K4c are
+   the tensor-core kernels: per shape, at B=8 without the statistics and at
+   B=4 with them, the kernel's and the library composition's device time
+   (the kernels of 20 calls in a ``torch.profiler`` trace), their ratio,
+   TFLOP/s and the share of the bound, and the sums over one forward;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
    and read just after (K1 >= 1, K2 >= 2, K3 = 27 launches per forward);
@@ -256,6 +262,39 @@ def ptxas_summary(report):
     return out
 
 
+def hgmma_counts(library):
+    """{kernel: number of HGMMA (wgmma) instructions} in the SASS of one
+    built library, by ``cuobjdump -sass``."""
+    from corrifnet_tpu_torch.ops.build import nvcc_path
+
+    sass = subprocess.run([str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_name(ln.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name is not None and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
+def check_tensor_core_kernels(build_dir):
+    """Every instantiation of the bf16 tensor-core kernels holds wgmma
+    instructions: the fused conv forwards (conv_wgmma_kernel) and the
+    attention kernels."""
+    found = {}
+    for lib in sorted(build_dir.glob("lib*.so")):
+        counts = hgmma_counts(lib)
+        wg = {k: v for k, v in counts.items() if "wgmma" in k}
+        log(f"  {lib.name}: HGMMA in the SASS: " + (
+            "; ".join(f"{k} {v}" for k, v in wg.items()) or "none"))
+        found.update(wg)
+    conv = {k: v for k, v in found.items() if k.startswith("conv_wgmma_kernel")}
+    if len(conv) < 12 or not all(found.values()):
+        raise AssertionError(f"tensor-core kernels without HGMMA: {found}")
+
+
 def device_ms(fn, launches=20):
     """A kernel's time on the card: ``launches`` calls queued between one pair
     of events, so that the host's dispatch of one hides behind the run of
@@ -271,6 +310,32 @@ def device_ms(fn, launches=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def profiled_device_ms(fn, launches=20):
+    """The device time of one call of ``fn``: the kernels (and copies) that
+    ``launches`` calls run, summed from a ``torch.profiler`` trace of them,
+    over the count. Unlike ``device_ms`` it does not read the host's
+    dispatch where that is longer than the kernels. Where five traces in a
+    row lose kernels (three in a row have been seen), the time is
+    ``device_ms``'s, and a line says so."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    # host and device activity, as the profile scripts trace it: a trace of
+    # the device alone now and then came back with kernels missing
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(kernels) >= launches:  # at least one kernel of every call
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / launches
+    log("  (the profiler missed kernels in five traces: this time is by events)")
+    return device_ms(fn, launches)
 
 
 def median_ms(fn, reps=10):
@@ -310,6 +375,13 @@ class Tally:
 
     def __init__(self):
         self.rows, self.failures, self.bound_kinds = {}, [], {}
+        # name: [kernel, library, bound] device ms, summed
+        self.device = {}
+
+    def add_device(self, name, calls, ms, library_ms, bound_ms):
+        sums = self.device.setdefault(name, [0.0, 0.0, 0.0])
+        for i, v in enumerate((ms, library_ms, bound_ms)):
+            sums[i] += calls * v
 
     def add(self, name, calls, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         r = self.rows.setdefault(name, {
@@ -336,6 +408,10 @@ class Tally:
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {lib}, max_abs_err bf16 "
                 f"{r['max_abs_err']:.3e}")
+        for name, (ms, lib, bound) in self.device.items():
+            log(f"  {title} {name} forward, device time (profiler, 20 calls a shape): "
+                f"kernel {ms:.4f} ms, library {lib:.4f} ms, kernel / library "
+                f"{ms / lib:.2f}, bound {bound:.4f} ms, {bound / ms:.1%} of the bound")
 
 
 def bytes_bound_ms(n_values, itemsize=2):
@@ -775,6 +851,14 @@ def library_weight(w):
     return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
+def device_line(rows, ci, co, taps, k_dev, l_dev, bound):
+    """Device times of a K4 forward and its library composition."""
+    tflops = 2 * rows * ci * co * taps / k_dev / 1e9
+    return (f"device (profiler, 20 calls) kernel {k_dev:.4f} library {l_dev:.4f} ms, "
+            f"kernel / library {k_dev / l_dev:.2f}, {tflops:.1f} TFLOP/s, "
+            f"{bound / k_dev:.1%} of the bound")
+
+
 def check_fused_conv_forward(ops, tally, gen, xs, co, prologue, calls):
     """K4a or K4c as the evaluation path launches it: under ``no_grad``,
     without the statistics, in bf16."""
@@ -791,15 +875,20 @@ def check_fused_conv_forward(ops, tally, gen, xs, co, prologue, calls):
                     f"{name} {xs} -> {co} no statistics bf16 {err:.1e}")
         k_ms = median_ms(lambda: fwd(*args, stats=False))
         p_ms = median_ms(lambda: plain(*args))
-        l_ms = median_ms(lambda: library_fused_conv(args[0], w_lib, args[2], args[3],
-                                                    taps, stats=False))
+        lib = lambda: library_fused_conv(args[0], w_lib, args[2], args[3],  # noqa: E731
+                                         taps, stats=False)
+        l_ms = median_ms(lib)
+        k_dev = profiled_device_ms(lambda: fwd(*args, stats=False))
+        l_dev = profiled_device_ms(lib)
     rows = int(np.prod(xs[:-1]))
     bound, by = fused_conv_bound_ms(rows, xs[-1], co, taps, False)
     log(f"  {name} {xs} -> {co}{' prologue' if prologue else ''} x{calls * ENCODERS}, no "
         f"statistics (under no_grad): bf16 rel-max {err:.1e} (bound {K4_BF16}); kernel "
-        f"{k_ms:.4f} plain {p_ms:.4f} library {l_ms:.4f} bound {bound:.4f} ms ({by})")
+        f"{k_ms:.4f} plain {p_ms:.4f} library {l_ms:.4f} bound {bound:.4f} ms ({by}); "
+        f"{device_line(rows, xs[-1], co, taps, k_dev, l_dev, bound)}")
     tally.add(name, calls * ENCODERS, (y.float() - want.float()).abs().max().item(),
               k_ms, p_ms, bound, by, l_ms)
+    tally.add_device(name, calls * ENCODERS, k_dev, l_dev, bound)
 
 
 def fused_conv_step(fn, args, cotangents):
@@ -852,6 +941,10 @@ def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
     abs_bwd = max((g.float() - r.float()).abs().max().item()
                   for g, r in zip(grads, want_grads))
 
+    with torch.no_grad():  # the forward with the statistics alone, on the card
+        w_lib = library_weight(args[1])
+        k_dev = profiled_device_ms(lambda: fwd(*args))
+        l_dev = profiled_device_ms(lambda: library_fused_conv(args[0], w_lib, a, b, taps))
     leaves = graph[1]
     k_f = median_ms(lambda: fwd(*leaves))
     k_b = median_ms(lambda: torch.autograd.grad(*graph, cots, retain_graph=True))
@@ -873,9 +966,11 @@ def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
         f"{max(errs['bf16'][0][1:]):.1e} (bound {K4_BF16_STATS}); repeatable {same}, "
         f"eval y equal {same_eval}; bf16 ms fwd kernel {k_f:.4f} plain {p_f:.4f} library "
         f"{l_f:.4f} bound {bf:.4f} ({byf}); bwd kernel {k_b:.4f} plain {p_b:.4f} library "
-        f"{l_b:.4f} bound {bb:.4f} ({byb})")
+        f"{l_b:.4f} bound {bb:.4f} ({byb}); forward with statistics "
+        f"{device_line(rows, ci, co, taps, k_dev, l_dev, bf)}")
     n = calls * ENCODERS
     tally.add(name, n, abs_fwd, k_f, p_f, bf, byf, l_f)
+    tally.add_device(name, n, k_dev, l_dev, bf)
     tally.add(name + "_bwd", n, abs_bwd, k_b, p_b, bb, byb, l_b)
 
 
@@ -1252,6 +1347,7 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     for report in sorted(BUILD_DIR.glob("*.log")):
         log(f"  {report.name}: " + "; ".join(ptxas_summary(report.read_text())))
+    check_tensor_core_kernels(BUILD_DIR)
 
     log("phase 3: kernels against their plain versions")
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 // Shared by attention_fwd.cu and attention_bwd.cu: the tiling constants, the
-// strided operand addressing, the Philox4x32-10 dropout mask, and the
-// building blocks of the bf16 tensor-core kernels (cp.async ring, bf16 shared
-// tiles in the 128-byte swizzle, ldmatrix for the A fragments, wgmma).
+// strided operand addressing, the Philox4x32-10 dropout mask, and the tile
+// loads and products of the bf16 tensor-core kernels (a cp.async ring of
+// 64 x 64 tiles, accumulators as A fragments of the next product).
 //
 // The dropout mask is a pure function of (seed, offset, batch*head, query
 // row, key column): Philox4x32-10 with key (seed, offset) and counter
@@ -14,7 +14,10 @@
 // out for their callers: fill_keep_tile (a 64x64 byte tile in shared memory,
 // the f32 kernels), keep_bits_rows (a warp's 16 query rows x 64 keys as two
 // registers, the bf16 forward and dq pass) and fill_keep_cols (a warp's 16
-// keys x 64 query rows as 16-bit words, the bf16 dk/dv pass).
+// keys x 64 query rows as 16-bit words, the bf16 dk/dv pass). The Hopper
+// building blocks under them (cp.async, the swizzle, ldmatrix, the wgmma
+// descriptor and products) are in hopper_common.cuh, shared with the fused
+// convolutions.
 
 #pragma once
 
@@ -22,7 +25,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace corrifnet {
+
+using namespace hopper;
 
 constexpr int kD = 64;         // head_dim
 constexpr int kTile = 64;      // rows of a key tile (and of an f32 query tile)
@@ -138,8 +145,6 @@ __device__ __forceinline__ void fill_keep_cols(uint16_t* flags, uint32_t row0,
 
 // ------------------------------------------------ bf16 tensor-core kernels
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTileBytes = kTile * kD * 2;  // a 64 x 64 bf16 tile
 constexpr int kStages = 3;                  // depth of the cp.async ring
 constexpr int kWarps = 4;                   // a block is one warpgroup
@@ -147,51 +152,12 @@ constexpr int kBlock = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 // 2^x by the special-function unit (ex2.approx: relative error 2^-22, 0 for
 // x = -inf), without the range handling of exp2f.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Two f32 rounded to bf16 (nearest even), `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Byte offset of the 16-byte chunk `c` (8 bf16) of row `r` in a shared tile
-// of 128-byte rows, 1024-byte aligned. The chunk index is XORed with the row:
-// this is the 128-byte swizzle that a wgmma descriptor of layout type 1
-// expects, and it spreads the eight rows an ldmatrix reads over all banks.
-__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
 // Asynchronous copy of `rows` rows of 64 bf16 (row stride `rs` elements in
@@ -214,14 +180,6 @@ __device__ __forceinline__ void load_pair_async(uint32_t ring, int st, const bf1
   load_rows_async(dst + kTileBytes, b + (long long)tile * kTile * sb, sb, kTile, tid);
 }
 
-// The A fragments (16 rows x 64 deep: four k-steps) of rows row0.. of a tile.
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], uint32_t tile,
-                                             int row0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldmatrix_x4(f[ks], tile + tile_offset(row0 + (lane & 15), 2 * ks + (lane >> 4)));
-}
-
 // A 16 x 64 f32 accumulator, rounded to bf16, as the A fragments of the next
 // product: the accumulator layout of column groups 2 j and 2 j + 1 is the A
 // register layout of k-step j, so the values never leave the registers.
@@ -234,13 +192,6 @@ __device__ __forceinline__ void acc_to_a_frags(uint32_t (&a)[4][4],
     a[j][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
     a[j][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
   }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 }
 
 // A warp's 16 x 64 accumulator times `mul`, rounded to bf16, to rows row0 +
@@ -260,73 +211,13 @@ __device__ __forceinline__ void store_acc(bf16* dst, long long rs, int row0,
   }
 }
 
-// Shared-memory matrix descriptor of a B operand tile of 128-byte rows in the
-// 128-byte swizzle (tile_offset's layout, the tile 1024-byte aligned):
-// start address, stride 1024 bytes between groups of eight rows, layout
-// type 1. It serves both a tile stored [n][k] (K-major, no transpose: a
-// k-step of 16 advances the start by 32 bytes) and one stored [k][n]
-// (MN-major, transposed: a k-step advances it by 16 rows, 2048 bytes).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
-  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Keeps the compiler from moving uses of an accumulator across the
-// asynchronous products that write it.
-__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[nt][e])::"memory");
-}
-
-// One asynchronous warpgroup product: d (64 x 64 f32, this warp's 16 rows in
-// the layout keep_bits_rows describes) += a (this warp's 16 x 16 bf16 A
-// registers) * B
-// (16 deep x 64 wide bf16, read from shared memory through `desc`;
-// kTransB 1 when the tile is stored [k][n]).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kTransB), "n"(1));
-}
-
 // acc (this warp's 16 of the warpgroup's 64 rows x 64) += a (16 x 64 deep, in
 // registers) * tile^T, the tile stored [n][k]: starts the four k-steps; the
 // caller fences before and commits and waits after.
 __device__ __forceinline__ void wgmma_a_bt(float (&acc)[8][4], const uint32_t (&a)[4][4],
                                            uint32_t tile) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16<0>(acc, a[ks], wgmma_desc(tile + 32 * ks));
+  for (int ks = 0; ks < 4; ++ks) Wgmma<64>::run<0>(acc, a[ks], wgmma_desc(tile + 32 * ks));
 }
 
 // The same with the tile stored [k][n], its 64 rows summed over.
@@ -334,13 +225,7 @@ __device__ __forceinline__ void wgmma_a_b(float (&acc)[8][4], const uint32_t (&a
                                           uint32_t tile) {
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    wgmma_m64n64k16<1>(acc, a[ks], wgmma_desc(tile + 2048 * ks));
-}
-
-// After cp.async.wait_group and before the barrier: the copies went through
-// the generic proxy, wgmma reads shared memory through the async proxy.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    Wgmma<64>::run<1>(acc, a[ks], wgmma_desc(tile + 2048 * ks));
 }
 
 }  // namespace corrifnet

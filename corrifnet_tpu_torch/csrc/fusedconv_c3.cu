@@ -17,13 +17,19 @@
 // there is no size gate and no switch to another path.
 //
 // What bounds it on the H100: operations at every shape of the model (18 ci
-// operations per output value against 2 + 2 bytes moved per value). K4d is
-// four launches, as K4b.
+// operations per output value against 2 + 2 bytes moved per value). The
+// forward in bf16 is the tensor-core kernel of fusedconv_wgmma.cuh, the
+// same implicit product with x read once per 64-channel chunk through a
+// halo tile that the nine taps read at their shifted rows, the padding
+// masked on z in registers, one launch with the statistics and split-K
+// where the tiles are few (the 14x14 and 7x7 stages); in f32 it is the FMA
+// rows_kernel. K4d is four launches, as K4b.
 //
 // C interface (bound with ctypes): each function returns the first
 // cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
 
 #include "fusedconv_common.cuh"
+#include "fusedconv_wgmma.cuh"
 
 using namespace corrifnet_fc;
 
@@ -37,14 +43,38 @@ bool bad_shape(int imgs, int h, int wd, int ci, int co) {
 }  // namespace
 
 // x (imgs, h, wd, ci), w (3, 3, ci, co), a and b (ci,) f32, y (imgs, h, wd, co);
-// with stats: part (ceil(imgs*h*wd / 64), 2, co) f32 scratch, sq (2, co) f32.
+// with stats sq (2, co) f32 and the scratch `part`; the bfloat16 plan and
+// scratch as in corrifnet_pw_fwd, with n = imgs * h * wd.
 extern "C" int corrifnet_c3_fwd(const void* x, const void* w, const void* a,
                                 const void* b, void* y, void* part, void* sq,
-                                int imgs, int h, int wd, int ci, int co, int dtype,
-                                int stats, void* stream) {
+                                void* scratch, void* counters, int imgs, int h, int wd,
+                                int ci, int co, int dtype, int stats, int block_n,
+                                int splits, int per_split, void* stream) {
   if (bad_shape(imgs, h, wd, ci, co) || a == nullptr || b == nullptr ||
       (stats != 0) != (sq != nullptr) || (stats != 0 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    WgArgs p = {};
+    p.x = static_cast<const bf16*>(x);
+    p.w = static_cast<const bf16*>(w);
+    p.a = static_cast<const float*>(a);
+    p.b = static_cast<const float*>(b);
+    p.y = static_cast<bf16*>(y);
+    p.part = stats ? static_cast<float*>(part) : nullptr;
+    p.sq = static_cast<float*>(sq);
+    p.scratch = static_cast<float*>(scratch);
+    p.counters = static_cast<int*>(counters);
+    p.n = imgs * h * wd;
+    p.ci = ci;
+    p.co = co;
+    p.h = h;
+    p.wd = wd;
+    p.splits = splits;
+    p.per_split = per_split;
+    return static_cast<int>(launch_forward_wgmma<9>(p, block_n, s));
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args p = {};
   p.x = x;
   p.w = w;
@@ -57,13 +87,7 @@ extern "C" int corrifnet_c3_fwd(const void* x, const void* w, const void* a,
   p.co = co;
   p.h = h;
   p.wd = wd;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = launch_forward<float, 9>(p, static_cast<float*>(sq), s);
-  else if (dtype == 1)
-    err = launch_forward<__nv_bfloat16, 9>(p, static_cast<float*>(sq), s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_forward<float, 9>(p, static_cast<float*>(sq), s));
 }
 
 // As the forward, plus y and dy (imgs, h, wd, co), ds and dq (co,) f32; outputs

@@ -29,9 +29,10 @@
 // g at p - (u-1, v-1).
 //
 // Products are f32 FMAs on the CUDA cores with f32 accumulation (a 4 x 4
-// register block per thread over 16-deep shared tiles), in both storage
-// types; bf16 mma/wgmma, TMA and pipelining are later work. Rounding points
-// are those of the TPU kernels: see round_to's callers.
+// register block per thread over 16-deep shared tiles). The forward runs
+// here for float32 only: the bfloat16 forward is the tensor-core kernel of
+// fusedconv_wgmma.cuh. The backward runs here in both storage types.
+// Rounding points are those of the TPU kernels: see round_to's callers.
 
 #pragma once
 
@@ -364,7 +365,8 @@ cudaError_t launch_reduce(const float* part, TOut* out, int count, int columns,
   return cudaGetLastError();
 }
 
-// Forward of either conv: y, and (s, q) into sq (2, co) when it is not null.
+// Forward of either conv (T = float): y, and (s, q) into sq (2, co) when it
+// is not null.
 template <typename T, int kTaps>
 cudaError_t launch_forward(Args p, float* sq, cudaStream_t stream) {
   const dim3 grid(ceil_div(p.n, kTile), ceil_div(p.co, kTile));

@@ -9,32 +9,62 @@
 //
 // What bounds it on the H100: the model's shapes run from (37632, 64 -> 64),
 // 2 operations for every byte moved and bound by bytes, to (588, 2048 -> 512),
-// bound by operations; most of a step's time is in the shapes between. The
-// design (fusedconv_common.cuh) reads x once per 64 output columns and writes
-// y once, takes the statistics from the accumulator so that y is never read
-// back for them, and applies the previous BatchNorm and ReLU on the load so
-// that z never reaches device memory. The backward makes g on the load in
-// both of its products rather than store it. K4b is four launches: dx with
-// the da/db partial sums, their reduction, the dw partial products over
-// splits of the rows, their reduction and cast.
+// bound by operations; most of a step's time is in the shapes between. Every
+// design reads x once per block of output columns and writes y once, takes
+// the statistics from the accumulator so that y is never read back for
+// them, and applies the previous BatchNorm and ReLU on the load so that z
+// never reaches device memory. The forward in bf16 is the tensor-core kernel
+// of fusedconv_wgmma.cuh (wgmma, one launch with the statistics, split-K for
+// the few-row shapes); in f32 it is rows_kernel of fusedconv_common.cuh (f32
+// FMA, the statistics added by a second launch). The backward, in both
+// types, makes g on the load in both of its products rather than store it.
+// K4b is four launches: dx with the da/db partial sums, their reduction, the
+// dw partial products over splits of the rows, their reduction and cast.
 //
 // C interface (bound with ctypes): each function returns the first
 // cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
 
 #include "fusedconv_common.cuh"
+#include "fusedconv_wgmma.cuh"
 
 using namespace corrifnet_fc;
 
 // x (n, ci), w (ci, co), a and b (ci,) f32 or null (relu_fma 0), y (n, co);
-// with stats: part (ceil(n/64), 2, co) f32 scratch, sq (2, co) f32 = (s, q).
+// with stats: sq (2, co) f32 = (s, q) and the scratch `part`: f32, for
+// float32 (ceil(n/64), 2, co), for bfloat16 (ceil(co/block_n), ceil(n/128),
+// 2, block_n). bfloat16 only: the plan (block_n, splits, per_split), with
+// splits > 1 the f32 scratch (ceil(n/128) * ceil(co/block_n), splits, 128,
+// block_n), and counters: ceil(n/128) * ceil(co/block_n) + ceil(co/block_n)
+// ints that are 0 (and are 0 again when the launch has run).
 extern "C" int corrifnet_pw_fwd(const void* x, const void* w, const void* a,
-                                const void* b, void* y, void* part, void* sq, int n,
-                                int ci, int co, int dtype, int relu_fma, int stats,
-                                void* stream) {
+                                const void* b, void* y, void* part, void* sq,
+                                void* scratch, void* counters, int n, int ci, int co,
+                                int dtype, int relu_fma, int stats, int block_n,
+                                int splits, int per_split, void* stream) {
   if (n <= 0 || ci <= 0 || co <= 0 || (relu_fma != 0) != (a != nullptr) ||
       (a == nullptr) != (b == nullptr) || (stats != 0) != (sq != nullptr) ||
       (stats != 0 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    WgArgs p = {};
+    p.x = static_cast<const bf16*>(x);
+    p.w = static_cast<const bf16*>(w);
+    p.a = static_cast<const float*>(a);
+    p.b = static_cast<const float*>(b);
+    p.y = static_cast<bf16*>(y);
+    p.part = stats ? static_cast<float*>(part) : nullptr;
+    p.sq = static_cast<float*>(sq);
+    p.scratch = static_cast<float*>(scratch);
+    p.counters = static_cast<int*>(counters);
+    p.n = n;
+    p.ci = ci;
+    p.co = co;
+    p.splits = splits;
+    p.per_split = per_split;
+    return static_cast<int>(launch_forward_wgmma<1>(p, block_n, s));
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args p = {};
   p.x = x;
   p.w = w;
@@ -45,13 +75,7 @@ extern "C" int corrifnet_pw_fwd(const void* x, const void* w, const void* a,
   p.n = n;
   p.ci = ci;
   p.co = co;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = launch_forward<float, 1>(p, static_cast<float*>(sq), s);
-  else if (dtype == 1)
-    err = launch_forward<__nv_bfloat16, 1>(p, static_cast<float*>(sq), s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_forward<float, 1>(p, static_cast<float*>(sq), s));
 }
 
 // As the forward, plus y and dy (n, co), ds and dq (co,) f32; outputs dx

@@ -22,14 +22,23 @@ rounded to the compute dtype; ``dw`` accumulates in f32 and is then cast;
 in f32.
 
 Kernels (CUDA C++, ``csrc/fusedconv_pw.cu`` and ``csrc/fusedconv_c3.cu`` over
-``csrc/fusedconv_common.cuh``): K4a replaces ``_pw_kernel``, K4b
-``_pw_bwd_kernel``, K4c ``_c3_kernel``, K4d ``_c3_bwd_kernel``
-(``corrifnet_tpu/ops/fusedconv.py:142,211,418,514``). The TPU kernels add
+``csrc/fusedconv_common.cuh`` and ``csrc/fusedconv_wgmma.cuh``): K4a replaces
+``_pw_kernel``, K4b ``_pw_bwd_kernel``, K4c ``_c3_kernel``, K4d
+``_c3_bwd_kernel`` (``corrifnet_tpu/ops/fusedconv.py:142,211,418,514``). The
+kernel is chosen by dtype, never by shape: bfloat16 forwards (K4a, K4c) run
+on the tensor cores (``wgmma``, one launch with the statistics, the
+contraction split over blocks by ``forward_plan``); float32 forwards and
+every backward run the f32 FMA kernels. Channels that are not a multiple
+of 8, or operands that are not 16-byte aligned, run the same bfloat16
+kernel with element loads instead of 16-byte copies. The TPU kernels add
 into one resident block over a sequential grid; thread blocks cannot, so
-every sum across blocks (``s``, ``q``, ``da``, ``db``, ``dw``) is written as
-per-block partial sums into a scratch buffer and added in a fixed order by a
-second pass. No atomics: two runs give the same bits. Each wrapper's count
-goes up by one per call, whatever the number of passes.
+every sum across blocks (``s``, ``q``, ``da``, ``db``, ``dw``, the split
+contraction) is written as per-block partial sums into a scratch buffer
+and added in a fixed order: by the last block to arrive (an integer
+ticket; the counters are one buffer per CUDA stream, 0 on entry and left
+at 0) in the bfloat16 forward, by a second pass elsewhere. No float
+atomics: two runs give the same bits. Each wrapper's count goes up by one
+per call, whatever the number of passes.
 
 Each wrapper takes its plain version below for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
@@ -50,6 +59,7 @@ __all__ = [
     "conv3x3_fma_relu_stats_backward_plain",
     "conv3x3_fma_relu_stats_bwd",
     "conv3x3_fma_relu_stats_plain",
+    "forward_plan",
     "pointwise_conv_stats",
     "pointwise_conv_stats_backward_plain",
     "pointwise_conv_stats_bwd",
@@ -60,6 +70,11 @@ TILE = 64  # rows and columns of one block's output tile (csrc/fusedconv_common.
 # blocks the weight-gradient pass aims for: four per SM of an H100
 _WGRAD_BLOCKS = 528
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bfloat16 forward (csrc/fusedconv_wgmma.cuh): rows of y a block, the
+# contraction depth of one iteration, and the blocks split-K aims for: half
+# the SMs of an H100 (scripts/bench_torch_fusedconv.py: splitting further
+# cost more than it gave at the model's shapes)
+WG_ROWS, WG_DEPTH, WG_BLOCKS = 128, 64, 66
 
 
 # ------------------------------------------------------------ plain versions
@@ -154,7 +169,7 @@ def conv3x3_fma_relu_stats_backward_plain(x, w, a, b, y, dy, ds, dq):
 def _pointwise_library():
     lib = load_cuda_library("fusedconv_pw.cu")
     fwd, bwd = lib.corrifnet_pw_fwd, lib.corrifnet_pw_bwd
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
@@ -164,7 +179,7 @@ def _pointwise_library():
 def _conv3x3_library():
     lib = load_cuda_library("fusedconv_c3.cu")
     fwd, bwd = lib.corrifnet_c3_fwd, lib.corrifnet_c3_bwd
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
@@ -240,16 +255,63 @@ def wgrad_plan(rows, ci, co, taps):
     return -(-rows // chunk), chunk
 
 
+def forward_plan(rows, ci, co, taps, block_n=None, blocks=WG_BLOCKS):
+    """(block_n, splits, iterations per split) of the bfloat16 forward.
+
+    A block computes 128 rows by ``block_n`` columns of y (64 for co <= 64,
+    else 128); its contraction is ``taps * ceil(ci / 64)`` iterations of 64
+    channels of one tap. Where the tiles are fewer than ``blocks``, the
+    contraction is split over blocks (split-K) until there are at least
+    ``blocks`` blocks or one iteration a split; every split holds at least
+    one iteration. A function of the shape only: y is the same bits with
+    and without the statistics. The wrappers take the defaults;
+    ``scripts/bench_torch_fusedconv.py`` times other widths and targets."""
+    block_n = block_n or (64 if co <= 64 else 128)
+    tiles = -(-rows // WG_ROWS) * -(-co // block_n)
+    iters = taps * -(-ci // WG_DEPTH)
+    per = iters // max(1, min(iters, -(-blocks // tiles)))
+    return block_n, -(-iters // per), per
+
+
+_COUNTERS = {}
+
+
+def _counters(x, size):
+    """Ticket counters of the bfloat16 forward on x's device and current
+    stream. The kernel needs them 0 on entry and leaves them 0, so launches
+    that share them must run in order: one buffer per stream (two streams
+    never share one), kept between calls and grown when a shape needs more;
+    made on the stream, so its zeros come before the launch."""
+    key = (x.device, _stream(x))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 4096), dtype=torch.int32, device=x.device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def _launch_forward(x, w, a, b, stats, taps):
     rows, ci, co = _check(x, w, a, b, taps)
     launch = _library(taps)[0]
     y = torch.empty((*x.shape[:-1], co), dtype=x.dtype, device=x.device)
-    part = _f32((-(-rows // TILE), 2, co), x) if stats else None
     sq = _f32((2, co), x) if stats else None
+    part = scratch = counters = None
+    block_n = splits = per = 0
+    if x.dtype == torch.bfloat16:
+        block_n, splits, per = forward_plan(rows, ci, co, taps)
+        row_blocks, col_tiles = -(-rows // WG_ROWS), -(-co // block_n)
+        if stats:
+            part = _f32((col_tiles, row_blocks, 2, block_n), x)
+        if splits > 1:
+            scratch = _f32((row_blocks * col_tiles, splits, WG_ROWS, block_n), x)
+        counters = _counters(x, row_blocks * col_tiles + col_tiles)
+    elif stats:
+        part = _f32((-(-rows // TILE), 2, co), x)
     dims = (rows, ci, co) if taps == 1 else (*x.shape[:3], ci, co)
     flags = (int(a is not None), int(stats)) if taps == 1 else (int(stats),)
     err = launch(_ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), _ptr(part), _ptr(sq),
-                 *dims, _DTYPE_CODES[x.dtype], *flags, _stream(x))
+                 _ptr(scratch), _ptr(counters), *dims, _DTYPE_CODES[x.dtype], *flags,
+                 block_n, splits, per, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused conv forward ({taps} taps) launch failed: "
                            f"cudaError {err}")

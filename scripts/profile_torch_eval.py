@@ -84,6 +84,8 @@ _KINDS = [
 # template arguments: <T, taps, backward, ...> and <T, taps, ...>
 _K4_ROWS = re.compile(r"rows_kernel<[^,]+, *(?:\(int\))?(\d), *(?:\(bool\))?(\w+)")
 _K4_WGRAD = re.compile(r"wgrad_kernel<[^,]+, *(?:\(int\))?(\d)")
+# the bf16 forwards on the tensor cores (csrc/fusedconv_wgmma.cuh): <taps, ...>
+_K4_WGMMA = re.compile(r"conv_wgmma_kernel<(?:\(int\))?(\d)")
 
 
 def kind_of(name):
@@ -96,6 +98,9 @@ def kind_of(name):
                 (True, True): "K4b fused 1x1 conv backward (dx, da, db)",
                 (False, False): "K4c fused 3x3 conv forward",
                 (False, True): "K4d fused 3x3 conv backward (dx, da, db)"}[pointwise, backward]
+    m = _K4_WGMMA.search(name)
+    if m:
+        return "K4a fused 1x1 conv forward" if m.group(1) == "1" else "K4c fused 3x3 conv forward"
     m = _K4_WGRAD.search(name)
     if m:
         return ("K4b fused 1x1 conv backward (dw)" if m.group(1) == "1"

@@ -91,6 +91,26 @@ def test_relu_instancenorm_kernel(cuda, shape):
 # same rounded inputs, 1e-4.
 K4_F32, K4_BF16, K4_BF16_STATS = 2e-5, 1e-2, 1e-4
 
+
+def _k4_model_cases(b=2):
+    """Every K4a and K4c shape class of MMVit4 at batch ``b`` (the depth of
+    3 folded into the rows): name -> (taps, x shape, co, prologue)."""
+    r = [3 * b * side * side for side in (56, 28, 14, 7)]
+    pointwise = [
+        (r[0], 64, 64, False), (r[0], 64, 256, True), (r[0], 64, 256, False),
+        (r[0], 256, 64, False), (r[0], 256, 128, False), (r[1], 128, 512, True),
+        (r[1], 256, 512, False), (r[1], 512, 128, False), (r[1], 512, 256, False),
+        (r[2], 256, 1024, True), (r[2], 512, 1024, False), (r[2], 1024, 256, False),
+        (r[2], 1024, 512, False), (r[3], 512, 2048, True), (r[3], 1024, 2048, False),
+        (r[3], 2048, 512, False),
+    ]
+    cases = {f"model_pw_{n}_{ci}_{co}{'_pro' if pro else ''}": (1, (n, ci), co, pro)
+             for n, ci, co, pro in pointwise}
+    for side, c in zip((56, 28, 14, 7), (64, 128, 256, 512)):
+        cases[f"model_c3_{side}_{c}"] = (9, (3 * b, side, side, c), c, True)
+    return cases
+
+
 _K4_CASES = {
     # name: (taps, x shape, co, prologue)
     "pw_tail_odd": (1, (48, 33), 40, True),
@@ -101,6 +121,19 @@ _K4_CASES = {
     "c3_tail_odd": (9, (2, 7, 9, 16), 24, True),
     "c3_layer1": (9, (3, 56, 56, 64), 64, True),
     "c3_layer4": (9, (12, 7, 7, 512), 512, True),
+    # a block's 128 rows hold parts of three 7x7 images
+    "c3_tiles_span_images": (9, (6, 7, 7, 64), 64, True),
+    # few rows, deep contraction: the bf16 forward splits it (split-K)
+    "pw_split": (1, (150, 1024), 256, True),
+    "c3_split": (9, (2, 7, 7, 256), 256, True),
+    # 256 and 2048 output columns
+    "pw_256_columns": (1, (1000, 128), 256, True),
+    "pw_2048_columns": (1, (300, 256), 2048, False),
+    # images too wide for two halo tiles: the bf16 3x3 conv reads a shifted
+    # x tile per tap instead (128 and 64 columns a block)
+    "c3_wide_image": (9, (1, 4, 96, 128), 128, True),
+    "c3_wide_image_64": (9, (1, 3, 128, 64), 64, True),
+    **_k4_model_cases(),
 }
 
 
@@ -159,6 +192,28 @@ def test_fused_conv_kernels(cuda, case, dtype):
     assert torch.equal(y3, out[0]) and s3 is None and q3 is None
 
 
+@pytest.mark.parametrize("case", ["pw_split", "c3_split"])
+def test_bf16_fused_conv_forwards_on_two_streams_keep_their_bits(cuda, case):
+    """bf16 forwards with split-K and the statistics queued on two streams at
+    once: each stream has its own ticket counters, so every call gives the
+    bits of a call alone."""
+    taps, args, _ = _k4_inputs(case, cuda, torch.bfloat16)
+    fwd = ops.KERNELS["pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    with torch.no_grad():
+        want = fwd(*args)
+        outs = []
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        for _ in range(16):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs.append(fwd(*args))
+        torch.cuda.synchronize()
+    for out in outs:
+        assert all(torch.equal(u, v) for u, v in zip(out, want))
+
+
 @pytest.mark.parametrize("stride,down", [(1, False), (1, True), (2, True)])
 def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda, stride, down):
     """One train step of a fused bottleneck in f32: output, running
@@ -180,6 +235,29 @@ def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda, stride, down):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    # The bf16 fused convs take any channel count and alignment: channels
+    # that are not a multiple of 8, or an x that does not start on 16 bytes,
+    # run the same tensor-core kernel with element loads (never the FMA
+    # kernel or the plain version), with the same bits as 16-byte copies.
+    x16 = _randn((48, 33), cuda).bfloat16()
+    w16 = (_randn((33, 20), cuda) / 6).bfloat16()
+    before = ops.pointwise_conv_stats.launches
+    y, s, q = ops.pointwise_conv_stats(x16, w16)
+    assert ops.pointwise_conv_stats.launches == before + 1
+    want = ops.pointwise_conv_stats_plain(x16, w16)
+    assert rel_max(y, want[0]) <= K4_BF16 and rel_max(s, want[1]) <= K4_BF16_STATS
+    buf = _randn((1 + 300 * 64,), cuda).bfloat16()
+    shifted = buf[1:].view(300, 64)  # 2 bytes past a 16-byte line
+    w64 = (_randn((64, 128), cuda) / 8).bfloat16()
+    for got, ref in zip(ops.pointwise_conv_stats(shifted, w64),
+                        ops.pointwise_conv_stats(shifted.clone(), w64)):
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError):
+        ops.pointwise_conv_stats(x16.half(), w16.half())
+    with pytest.raises(ValueError):
+        ops.conv3x3_fma_relu_stats(_randn((1, 4, 4, 8), cuda).bfloat16().transpose(1, 2),
+                                   _randn((3, 3, 8, 8), cuda).bfloat16(),
+                                   torch.ones(8, device="cuda"), torch.zeros(8, device="cuda"))
     x = _randn((1, 1, 64, 64), cuda)
     with pytest.raises(ValueError):
         ops.fused_attention(x, x, x.transpose(2, 3), 0.125)  # not contiguous

@@ -444,6 +444,66 @@ def test_wgrad_plan_covers_the_rows(rows, ci, co, taps):
     assert (splits - 1) * chunk < rows <= splits * chunk
 
 
+def _model_forward_shapes():
+    """(rows, ci, co, taps) of every K4a and K4c call of MMVit4 at B=2, 4, 8:
+    the depth of 3 folded into the rows, the four stages at 56, 28, 14, 7."""
+    shapes = []
+    for b in (2, 4, 8):
+        r = [3 * b * side * side for side in (56, 28, 14, 7)]
+        shapes += [
+            (r[0], 64, 64, 1), (r[0], 64, 256, 1), (r[0], 256, 64, 1), (r[0], 256, 128, 1),
+            (r[1], 128, 512, 1), (r[1], 256, 512, 1), (r[1], 512, 128, 1),
+            (r[1], 512, 256, 1), (r[2], 256, 1024, 1), (r[2], 512, 1024, 1),
+            (r[2], 1024, 256, 1), (r[2], 1024, 512, 1), (r[3], 512, 2048, 1),
+            (r[3], 1024, 2048, 1), (r[3], 2048, 512, 1),
+        ]
+        shapes += [(r[i], c, c, 9) for i, c in enumerate((64, 128, 256, 512))]
+    return shapes
+
+
+@pytest.mark.parametrize("rows,ci,co,taps", _model_forward_shapes())
+def test_forward_plan_covers_the_contraction(rows, ci, co, taps):
+    """The bf16 forward's plan: the splits hold every contraction iteration
+    once, none is empty, and the grid has at least the blocks the plan aims
+    for (half the SMs of an H100) or is split as far as it goes (one
+    iteration a split)."""
+    block_n, splits, per = t_fc.forward_plan(rows, ci, co, taps)
+    iters = taps * -(-ci // t_fc.WG_DEPTH)
+    assert block_n in (64, 128) and splits >= 1 and per >= 1
+    assert (splits - 1) * per < iters <= splits * per
+    blocks = -(-rows // t_fc.WG_ROWS) * -(-co // block_n) * splits
+    assert blocks >= t_fc.WG_BLOCKS or per == 1
+
+
+@pytest.mark.parametrize("xs,co,taps", [((300, 64), 256, 1), ((588, 2048), 512, 1),
+                                        ((12, 7, 7, 512), 512, 9)])
+def test_forward_plan_does_not_depend_on_stats(xs, co, taps, monkeypatch):
+    """The bf16 forward is launched with the same plan with and without the
+    statistics (so y is the same bits), the plan of ``forward_plan``; the
+    scratch it is given matches the plan."""
+    calls = []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(t_fc, "_library", lambda taps: (launch, None))
+    monkeypatch.setattr(t_fc, "_counters", lambda x, size: torch.zeros(size))
+    monkeypatch.setattr(t_fc, "_stream", lambda x: 0)
+    ci = xs[-1]
+    x = torch.zeros(xs, dtype=torch.bfloat16)
+    w = torch.zeros((ci, co) if taps == 1 else (3, 3, ci, co), dtype=torch.bfloat16)
+    a, b = torch.ones(ci), torch.zeros(ci)
+    for stats in (True, False):
+        t_fc._launch_forward(x, w, a, b, stats, taps)
+    rows = x.numel() // ci
+    plan = t_fc.forward_plan(rows, ci, co, taps)
+    with_stats, without = (c[-4:-1] for c in calls)  # the plan, then the stream
+    assert with_stats == without == plan
+    assert calls[0][5] is not None and calls[1][5] is None  # the column partials
+    assert (calls[0][7] is None) == (plan[1] == 1)  # split-K scratch
+
+
 # ---------------------------------------------------------------- wrappers
 
 

@@ -2,7 +2,7 @@
 
     env JAX_PLATFORMS=cpu python tests/torch_step_f64.py
 
-Run in a process of its own by ``tests/test_torch_train.py``
+Run in a process of its own by ``tests/test_torch_train_f64.py``
 (``test_train_step_matches_jax_in_f64``), because it changes both libraries
 for the whole process; prints one JSON object on its last line.
 
