@@ -41,11 +41,13 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    bits, and the evaluation variant without statistics the same y (that
    variant is also timed at the B=8 shapes); their
    library yardstick is ``F.linear``/``F.conv2d`` with the BatchNorm apply,
-   ReLU and statistics in tensor ops. In bf16 the forwards K4a and K4c are
-   the tensor-core kernels: per shape, at B=8 without the statistics and at
-   B=4 with them, the kernel's and the library composition's device time
-   (the kernels of 20 calls in a ``torch.profiler`` trace), their ratio,
-   TFLOP/s and the share of the bound, and the sums over one forward;
+   ReLU and statistics in tensor ops. In bf16 all four are the tensor-core
+   kernels: per shape, for the forwards at B=8 without the statistics and
+   at B=4 with them, for the backwards (K4b, K4d, called on the forward's
+   saved tensors) at B=4, the kernel's and the library composition's device
+   time (the kernels of 20 calls in a ``torch.profiler`` trace; the
+   library's backward through ``autograd.grad``), their ratio, TFLOP/s and
+   the share of the bound, and the sums over one forward or step;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
    and read just after (K1 >= 1, K2 >= 2, K3 = 27 launches per forward);
@@ -55,7 +57,8 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    patches, with validation by checkpoint and the test; counters reset just
    before and read just after: per training step K1f 1, K1b 1, K2f 4, K2b 4
    (its dq and dk/dv passes count as one launch), K3 27; the log
-   files and both checkpoints exist; losses in the double-sigmoid band;
+   files, both checkpoints and the segplot PNGs exist (the curve PNGs too
+   where matplotlib is installed); losses in the double-sigmoid band;
    step seconds, patches/s and peak memory are printed;
 6. whole model: one image (B=1) in f32 with TF32 off, through the kernels
    on the card and through the plain versions on the CPU, same weights:
@@ -87,6 +90,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import importlib.util
 import json
 import os
 import re
@@ -281,8 +285,9 @@ def hgmma_counts(library):
 
 def check_tensor_core_kernels(build_dir):
     """Every instantiation of the bf16 tensor-core kernels holds wgmma
-    instructions: the fused conv forwards (conv_wgmma_kernel) and the
-    attention kernels."""
+    instructions: the fused conv forwards and the backwards' dx passes
+    (conv_wgmma_kernel, 12 each), the backwards' dw passes
+    (wgrad_wgmma_kernel, 4) and the attention kernels."""
     found = {}
     for lib in sorted(build_dir.glob("lib*.so")):
         counts = hgmma_counts(lib)
@@ -290,8 +295,9 @@ def check_tensor_core_kernels(build_dir):
         log(f"  {lib.name}: HGMMA in the SASS: " + (
             "; ".join(f"{k} {v}" for k, v in wg.items()) or "none"))
         found.update(wg)
-    conv = {k: v for k, v in found.items() if k.startswith("conv_wgmma_kernel")}
-    if len(conv) < 12 or not all(found.values()):
+    conv = [k for k in found if k.startswith("conv_wgmma_kernel")]
+    wgrad = [k for k in found if k.startswith("wgrad_wgmma_kernel")]
+    if len(conv) < 24 or len(wgrad) < 4 or not all(found.values()):
         raise AssertionError(f"tensor-core kernels without HGMMA: {found}")
 
 
@@ -312,13 +318,16 @@ def device_ms(fn, launches=20):
     return start.elapsed_time(end) / launches
 
 
-def profiled_device_ms(fn, launches=20):
+def profiled_device_ms(fn, launches=20, by_kernel=False):
     """The device time of one call of ``fn``: the kernels (and copies) that
     ``launches`` calls run, summed from a ``torch.profiler`` trace of them,
-    over the count. Unlike ``device_ms`` it does not read the host's
-    dispatch where that is longer than the kernels. Where five traces in a
-    row lose kernels (three in a row have been seen), the time is
-    ``device_ms``'s, and a line says so."""
+    over the count (``by_kernel``: {kernel name: ms per call}). Unlike
+    ``device_ms`` it does not read the host's dispatch where that is longer
+    than the kernels. A trace now and then loses kernels, so a time is
+    taken only when two traces hold the same number of kernels, at least
+    one a call; after five traces without that, from the trace with the
+    most kernels (or, with fewer than one a call, by ``device_ms``, under
+    the name "all, by events"), and a line says so."""
     from torch.autograd import DeviceType
 
     fn()
@@ -326,16 +335,31 @@ def profiled_device_ms(fn, launches=20):
     # host and device activity, as the profile scripts trace it: a trace of
     # the device alone now and then came back with kernels missing
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def per_call(kernels):
+        ms = {}
+        for e in kernels:
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / launches
+        return ms if by_kernel else sum(ms.values())
+
+    seen = {}  # kernels in a trace: its times
     for _ in range(5):
         with torch.profiler.profile(activities=activities) as prof:
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if len(kernels) >= launches:  # at least one kernel of every call
-            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / launches
+        if len(kernels) >= launches and len(kernels) in seen:
+            return per_call(kernels)
+        seen[len(kernels)] = per_call(kernels)
+    most = max(seen)
+    if most >= launches:
+        log(f"  (no two of five traces held as many kernels: {sorted(seen)}; this "
+            f"time is from the one with the most)")
+        return seen[most]
     log("  (the profiler missed kernels in five traces: this time is by events)")
-    return device_ms(fn, launches)
+    ms = device_ms(fn, launches)
+    return {"all, by events": ms} if by_kernel else ms
 
 
 def median_ms(fn, reps=10):
@@ -409,7 +433,7 @@ class Tally:
                 f"({r['bound_by']}), library {lib}, max_abs_err bf16 "
                 f"{r['max_abs_err']:.3e}")
         for name, (ms, lib, bound) in self.device.items():
-            log(f"  {title} {name} forward, device time (profiler, 20 calls a shape): "
+            log(f"  {title} {name}, device time (profiler, 20 calls a shape): "
                 f"kernel {ms:.4f} ms, library {lib:.4f} ms, kernel / library "
                 f"{ms / lib:.2f}, bound {bound:.4f} ms, {bound / ms:.1%} of the bound")
 
@@ -851,9 +875,9 @@ def library_weight(w):
     return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
-def device_line(rows, ci, co, taps, k_dev, l_dev, bound):
-    """Device times of a K4 forward and its library composition."""
-    tflops = 2 * rows * ci * co * taps / k_dev / 1e9
+def device_line(rows, ci, co, taps, k_dev, l_dev, bound, backward=False):
+    """Device times of a K4 forward (or backward) and its library composition."""
+    tflops = (4 if backward else 2) * rows * ci * co * taps / k_dev / 1e9
     return (f"device (profiler, 20 calls) kernel {k_dev:.4f} library {l_dev:.4f} ms, "
             f"kernel / library {k_dev / l_dev:.2f}, {tflops:.1f} TFLOP/s, "
             f"{bound / k_dev:.1%} of the bound")
@@ -945,6 +969,9 @@ def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
         w_lib = library_weight(args[1])
         k_dev = profiled_device_ms(lambda: fwd(*args))
         l_dev = profiled_device_ms(lambda: library_fused_conv(args[0], w_lib, a, b, taps))
+        # the backward alone: the kernel's passes from the saved tensors
+        bwd = getattr(ops, name + "_bwd")
+        k_bdev = profiled_device_ms(lambda: bwd(*args, out[0], *cots))
     leaves = graph[1]
     k_f = median_ms(lambda: fwd(*leaves))
     k_b = median_ms(lambda: torch.autograd.grad(*graph, cots, retain_graph=True))
@@ -958,6 +985,8 @@ def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
     lib_out = lib()
     l_b = median_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, cots,
                                                 retain_graph=True))
+    l_bdev = profiled_device_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, cots,
+                                                            retain_graph=True))
     (bf, byf), (bb, byb) = (fused_conv_bound_ms(rows, ci, co, taps, back)
                             for back in (False, True))
     log(f"  {tag} x{calls * ENCODERS}: rel-max f32 fwd {max(errs['f32'][0]):.1e} bwd "
@@ -967,11 +996,13 @@ def check_fused_conv(ops, tally, gen, xs, co, prologue, calls):
         f"eval y equal {same_eval}; bf16 ms fwd kernel {k_f:.4f} plain {p_f:.4f} library "
         f"{l_f:.4f} bound {bf:.4f} ({byf}); bwd kernel {k_b:.4f} plain {p_b:.4f} library "
         f"{l_b:.4f} bound {bb:.4f} ({byb}); forward with statistics "
-        f"{device_line(rows, ci, co, taps, k_dev, l_dev, bf)}")
+        f"{device_line(rows, ci, co, taps, k_dev, l_dev, bf)}; backward "
+        f"{device_line(rows, ci, co, taps, k_bdev, l_bdev, bb, backward=True)}")
     n = calls * ENCODERS
     tally.add(name, n, abs_fwd, k_f, p_f, bf, byf, l_f)
     tally.add_device(name, n, k_dev, l_dev, bf)
     tally.add(name + "_bwd", n, abs_bwd, k_b, p_b, bb, byb, l_b)
+    tally.add_device(name + "_bwd", n, k_bdev, l_bdev, bb)
 
 
 def check_fused_convs(ops, tally, b, gen, backward):
@@ -1153,7 +1184,14 @@ def phase_train_slice(ops, tmp, fused=False):
     run_dir = Path(r["run_dir"])
     files = ["lrFile.txt", "trainFile.txt", "trainaccFile.txt", "trainepochFile.txt",
              "valFile.txt", "valaccFile.txt", "testFile.txt", "testaccFile.txt",
-             "fpsfile.txt", "iremmodel0", "Finaliremmodel0"]
+             "fpsfile.txt", "iremmodel0", "Finaliremmodel0",
+             # the first test image's segplot family; the curves need matplotlib
+             # (without it the run prints one line naming them)
+             "segmentation_image.png", "test_image.png", "test_image_R.png",
+             "test_image_G.png", "test_image_B.png", "test_pred_mask.png",
+             "ground_truth_mask.png"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        files += ["learning_curves.png", "accuracy_curves.png"]
     missing = [f for f in files if not (run_dir / f).exists()
                or (run_dir / f).stat().st_size == 0]
     if missing:

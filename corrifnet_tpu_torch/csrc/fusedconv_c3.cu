@@ -23,13 +23,17 @@
 // halo tile that the nine taps read at their shifted rows, the padding
 // masked on z in registers, one launch with the statistics and split-K
 // where the tiles are few (the 14x14 and 7x7 stages); in f32 it is the FMA
-// rows_kernel. K4d is four launches, as K4b.
+// rows_kernel. The backward K4d is built as K4b's (fusedconv_pw.cu): in bf16
+// the three wgmma launches of fusedconv_wgmma_bwd.cuh, the dx pass reading g
+// through the same halo tiles at the flipped taps and the dw pass one tap a
+// block; in f32 the four FMA launches.
 //
 // C interface (bound with ctypes): each function returns the first
 // cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
 
 #include "fusedconv_common.cuh"
 #include "fusedconv_wgmma.cuh"
+#include "fusedconv_wgmma_bwd.cuh"
 
 using namespace corrifnet_fc;
 
@@ -91,18 +95,34 @@ extern "C" int corrifnet_c3_fwd(const void* x, const void* w, const void* a,
 }
 
 // As the forward, plus y and dy (imgs, h, wd, co), ds and dq (co,) f32; outputs
-// dx (imgs, h, wd, ci), dw (3, 3, ci, co) in the storage type, dab (2, ci) f32;
-// scratch part (ceil(imgs*h*wd / 64), 2, ci) f32 and dw_part (splits, 3, 3, ci,
-// co) f32; splits * chunk >= imgs*h*wd.
+// dx (imgs, h, wd, ci), dw (3, 3, ci, co) in the storage type, dab (2, ci) f32.
+// float32: scratch part (ceil(imgs*h*wd / 64), 2, ci) f32 and dw_part (splits,
+// 3, 3, ci, co) f32; splits * chunk >= imgs*h*wd; g, scratch, counters null.
+// bfloat16: the plan and scratch as in corrifnet_pw_bwd, n = imgs * h * wd.
 extern "C" int corrifnet_c3_bwd(const void* x, const void* w, const void* a,
                                 const void* b, const void* y, const void* dy,
                                 const void* ds, const void* dq, void* dx, void* dw,
-                                void* dab, void* part, void* dw_part, int imgs, int h,
-                                int wd, int ci, int co, int splits, int chunk,
-                                int dtype, void* stream) {
+                                void* dab, void* part, void* dw_part, void* g,
+                                void* scratch, void* counters, int imgs, int h, int wd,
+                                int ci, int co, int splits, int chunk, int dtype,
+                                int dx_block_n, int dx_splits, int dx_per, int dw_splits,
+                                int dw_per, int dw_group, void* stream) {
   if (bad_shape(imgs, h, wd, ci, co) || a == nullptr || b == nullptr ||
-      dab == nullptr || part == nullptr || dw_part == nullptr)
+      dab == nullptr || part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const BwdPlan plan = {dx_block_n, dx_splits, dx_per, dw_splits, dw_per, dw_group};
+    return static_cast<int>(launch_backward_wgmma<9>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<const bf16*>(y), static_cast<const bf16*>(dy),
+        static_cast<const float*>(ds), static_cast<const float*>(dq), static_cast<bf16*>(dx),
+        static_cast<bf16*>(dw), static_cast<float*>(dab), static_cast<float*>(part),
+        static_cast<float*>(scratch), static_cast<float*>(dw_part), static_cast<bf16*>(g),
+        static_cast<int*>(counters), imgs * h * wd, ci, co, h, wd, plan, s));
+  }
+  if (dtype != 0 || dw_part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Args p = {};
   p.x = x;
   p.w = w;
@@ -118,14 +138,7 @@ extern "C" int corrifnet_c3_bwd(const void* x, const void* w, const void* a,
   p.h = h;
   p.wd = wd;
   p.chunk = chunk;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* ab = static_cast<float*>(dab);
-  float* pt = static_cast<float*>(part);
-  float* wp = static_cast<float*>(dw_part);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = launch_backward<float, 9>(p, dx, dw, ab, pt, wp, splits, s);
-  else if (dtype == 1)
-    err = launch_backward<__nv_bfloat16, 9>(p, dx, dw, ab, pt, wp, splits, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_backward<float, 9>(
+      p, dx, dw, static_cast<float*>(dab), static_cast<float*>(part),
+      static_cast<float*>(dw_part), splits, s));
 }

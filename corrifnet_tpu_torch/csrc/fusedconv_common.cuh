@@ -1,7 +1,9 @@
 // Shared by fusedconv_pw.cu (1x1 convs, kTaps = 1) and fusedconv_c3.cu (3x3
 // stride-1 convs, kTaps = 9): the three kernels the fused bottleneck
-// convolutions are made of, as templates over the storage type T (float or
-// __nv_bfloat16) and the number of taps.
+// convolutions are made of in float32, as templates over the storage type T
+// (instantiated for float; the rounding helpers round_to, prologue_pre and
+// out_cotangent also serve __nv_bfloat16 in the tensor-core kernels) and the
+// number of taps.
 //
 //   rows_kernel   one 64 x 64 tile of an (n, C) output whose rows are the
 //                 activation's rows (pixels). Forward: y = z @ w with
@@ -29,10 +31,11 @@
 // g at p - (u-1, v-1).
 //
 // Products are f32 FMAs on the CUDA cores with f32 accumulation (a 4 x 4
-// register block per thread over 16-deep shared tiles). The forward runs
-// here for float32 only: the bfloat16 forward is the tensor-core kernel of
-// fusedconv_wgmma.cuh. The backward runs here in both storage types.
-// Rounding points are those of the TPU kernels: see round_to's callers.
+// register block per thread over 16-deep shared tiles). They run here for
+// float32 only: the bfloat16 forward and backward are the tensor-core
+// kernels of fusedconv_wgmma.cuh and fusedconv_wgmma_bwd.cuh, which take
+// prologue_pre and out_cotangent from here. Rounding points are those of
+// the TPU kernels: see round_to's callers.
 
 #pragma once
 

@@ -16,16 +16,20 @@
 // never reaches device memory. The forward in bf16 is the tensor-core kernel
 // of fusedconv_wgmma.cuh (wgmma, one launch with the statistics, split-K for
 // the few-row shapes); in f32 it is rows_kernel of fusedconv_common.cuh (f32
-// FMA, the statistics added by a second launch). The backward, in both
-// types, makes g on the load in both of its products rather than store it.
-// K4b is four launches: dx with the da/db partial sums, their reduction, the
-// dw partial products over splits of the rows, their reduction and cast.
+// FMA, the statistics added by a second launch). The backward in bf16 is the
+// three launches of fusedconv_wgmma_bwd.cuh (g written once; the dx pass on
+// the forward's wgmma template with da and db by tickets; the wgmma dw pass,
+// split over the rows, its partials added by tickets); in f32 it is the FMA
+// kernels, g made on the load in both products, in four launches: dx with
+// the da/db partial sums, their reduction, the dw partial products over
+// splits of the rows, their reduction.
 //
 // C interface (bound with ctypes): each function returns the first
 // cudaGetLastError() that is not success. dtype: 0 = float32, 1 = bfloat16.
 
 #include "fusedconv_common.cuh"
 #include "fusedconv_wgmma.cuh"
+#include "fusedconv_wgmma_bwd.cuh"
 
 using namespace corrifnet_fc;
 
@@ -80,18 +84,37 @@ extern "C" int corrifnet_pw_fwd(const void* x, const void* w, const void* a,
 
 // As the forward, plus y and dy (n, co), ds and dq (co,) f32; outputs dx
 // (n, ci), dw (ci, co) in the storage type, dab (2, ci) f32 = (da, db) with a
-// prologue; scratch part (ceil(n/64), 2, ci) f32 with a prologue and dw_part
-// (splits, ci, co) f32; splits * chunk >= n.
+// prologue. float32: scratch part (ceil(n/64), 2, ci) f32 with a prologue and
+// dw_part (splits, ci, co) f32; splits * chunk >= n; g, scratch, counters
+// null. bfloat16: the plan (dx_block_n, dx_splits, dx_per, dw_splits,
+// dw_per, dw_group) and the scratch of launch_backward_wgmma
+// (fusedconv_wgmma_bwd.cuh): g (n, co) bf16, part, scratch (the dx pass's
+// split partials), dw_part (the dw pass's) and counters; splits, chunk 0.
 extern "C" int corrifnet_pw_bwd(const void* x, const void* w, const void* a,
                                 const void* b, const void* y, const void* dy,
                                 const void* ds, const void* dq, void* dx, void* dw,
-                                void* dab, void* part, void* dw_part, int n, int ci,
-                                int co, int splits, int chunk, int dtype,
-                                int relu_fma, void* stream) {
+                                void* dab, void* part, void* dw_part, void* g,
+                                void* scratch, void* counters, int n, int ci, int co,
+                                int splits, int chunk, int dtype, int relu_fma,
+                                int dx_block_n, int dx_splits, int dx_per, int dw_splits,
+                                int dw_per, int dw_group, void* stream) {
   if (n <= 0 || ci <= 0 || co <= 0 || (relu_fma != 0) != (a != nullptr) ||
       (a == nullptr) != (b == nullptr) || (a != nullptr) != (dab != nullptr) ||
-      (a != nullptr && part == nullptr) || dw_part == nullptr)
+      (a != nullptr && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const BwdPlan plan = {dx_block_n, dx_splits, dx_per, dw_splits, dw_per, dw_group};
+    return static_cast<int>(launch_backward_wgmma<1>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<const bf16*>(y), static_cast<const bf16*>(dy),
+        static_cast<const float*>(ds), static_cast<const float*>(dq), static_cast<bf16*>(dx),
+        static_cast<bf16*>(dw), static_cast<float*>(dab), static_cast<float*>(part),
+        static_cast<float*>(scratch), static_cast<float*>(dw_part), static_cast<bf16*>(g),
+        static_cast<int*>(counters), n, ci, co, 0, 0, plan, s));
+  }
+  if (dtype != 0 || dw_part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Args p = {};
   p.x = x;
   p.w = w;
@@ -105,14 +128,7 @@ extern "C" int corrifnet_pw_bwd(const void* x, const void* w, const void* a,
   p.ci = ci;
   p.co = co;
   p.chunk = chunk;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* ab = static_cast<float*>(dab);
-  float* pt = static_cast<float*>(part);
-  float* wp = static_cast<float*>(dw_part);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0)
-    err = launch_backward<float, 1>(p, dx, dw, ab, pt, wp, splits, s);
-  else if (dtype == 1)
-    err = launch_backward<__nv_bfloat16, 1>(p, dx, dw, ab, pt, wp, splits, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_backward<float, 1>(
+      p, dx, dw, static_cast<float*>(dab), static_cast<float*>(part),
+      static_cast<float*>(dw_part), splits, s));
 }

@@ -4,6 +4,9 @@
 //     z = relu(round(round(x*a) + b)) (or z = x),  3x3: zero padding on z,
 //     y = round(z (*) w)  with f32 accumulation,
 //     s = sum_rows y, q = sum_rows y^2  from the f32 accumulator.
+// The same template with kBwd true is the dx pass of the bf16 backward (K4b,
+// K4d; fusedconv_wgmma_bwd.cuh): the product dz = g (*) w^T with the roles
+// swapped, described after the forward below.
 //
 // The product is implicit over (rows, taps * ci): iteration `it` of the
 // contraction is tap it % kTaps of the 64-channel chunk it / kTaps, so the
@@ -50,6 +53,24 @@
 // kVec false is the same kernel with element loads and stores, for ci or co
 // not a multiple of 8 or operands not 16-byte aligned (no 16-byte copies
 // there).
+//
+// kBwd (the backward's dx pass): rows are pixels, the contraction runs over
+// (tap, the model's co), the columns are the model's ci. WgArgs then hold x
+// = g (n, co), ci = the model's co, co = the model's ci, y = dx, and xe =
+// the model's x; w is the same (taps, ci, co) array, read as B[n = ci][k =
+// co] K-major (a k-step advances the descriptor by 32 bytes: no weight is
+// transposed), with the tap flipped: iteration tap t reads g at the forward's
+// shift of t (the halo tiles and the mask are the forward's) and w[8 - t],
+// so dz(p) = sum_t g(p + shift(t)) w[8 - t]^T, the FMA kernel's g at
+// p - shift(8 - t). No prologue on A. The epilogue rounds dz, recomputes
+// pre = round(round(x*a) + b) from xe, a, b (prologue_pre's bits), writes dx
+// = round([pre > 0] dz * a) (with a) or round(dz) (without), and takes the
+// column sums (da, db) = (sum [pre > 0] dz x, sum [pre > 0] dz) through the
+// same partials and tickets as (s, q). x's tile comes by one batch of
+// cp.async into y's staging area, where each thread's dx pair replaces its x
+// pair, and a and b of the block's columns wait in shared memory: loaded
+// one by one from device memory between the shuffles, they made this
+// epilogue cost more than the product at the 64-channel shapes.
 
 #pragma once
 
@@ -70,6 +91,7 @@ constexpr int kMaxSmem = 232448;         // 227 KB, the most a block may have
 
 struct WgArgs {
   const bf16* x;     // (n, ci): pixels x channels
+  const bf16* xe;    // kBwd: the model's x (n, co), for the epilogue
   const bf16* w;     // (taps, ci, co)
   const float* a;    // (ci,) prologue scale, or null
   const float* b;    // (ci,) prologue shift, or null
@@ -129,7 +151,7 @@ __host__ __device__ __forceinline__ int halo_rows(int wd) {
   return (kWgRows + 2 * (wd + 1) + 7) & ~7;
 }
 
-template <int kTaps, int kBN, bool kVec, bool kHalo>
+template <int kTaps, int kBN, bool kVec, bool kHalo, bool kBwd>
 __global__ void __launch_bounds__(kWgThreads, 2)
 conv_wgmma_kernel(WgArgs p) {
   constexpr int kN8 = kBN / 8;
@@ -146,6 +168,8 @@ conv_wgmma_kernel(WgArgs p) {
   const int ci_pad = (p.ci + kWgK - 1) / kWgK * kWgK;
   bf16* ab = reinterpret_cast<bf16*>(gbase + ring_off + kWgStages * kStageBytes);
   int* flag = reinterpret_cast<int*>(ab + 2 * ci_pad);
+  // kBwd with the prologue: a and b of the block's kBN columns, rounded
+  float* eab = reinterpret_cast<float*>(flag + 4);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -154,8 +178,14 @@ conv_wgmma_kernel(WgArgs p) {
   const int total = kTaps * (ci_pad / kWgK);
   const int it0 = split * p.per_split;
   const int n_it = min(total, it0 + p.per_split) - it0;
-  const bool pro = p.a != nullptr;
+  const bool pro = !kBwd && p.a != nullptr;  // the prologue on A (forward only)
 
+  if (kBwd && p.part != nullptr) {
+    for (int k = tid; k < 2 * kBN; k += kWgThreads) {
+      const int c = col0 + (k < kBN ? k : k - kBN);
+      eab[k] = c < p.co ? round_to<bf16>(k < kBN ? p.a[c] : p.b[c]) : 0.f;
+    }
+  }
   if (pro) {
     for (int k = tid; k < ci_pad; k += kWgThreads) {
       ab[k] = __float2bfloat16(k < p.ci ? p.a[k] : 0.f);
@@ -208,6 +238,24 @@ conv_wgmma_kernel(WgArgs p) {
         const int rr = (tid >> 3) + 32 * j;
         load_x(a_off + tile_offset(rr, c), row0 + rr + shift, k0 + 8 * c);
       }
+    }
+    if (kBwd) {
+      // w[8 - tap] rows col0.. (the model's ci), k0.. along each row (its co):
+      // kBN rows of 128 bytes, K-major
+      const int wt = kTaps - 1 - tap;
+#pragma unroll
+      for (int i = tid; i < kBN * 8; i += kWgThreads) {
+        const int n = i >> 3, c = i & 7;
+        const int col = col0 + n, k = k0 + 8 * c;
+        const bool ok = col < p.co && k < p.ci;
+        const bf16* from = p.w + (ok ? ((size_t)wt * p.co + col) * p.ci + k : 0);
+        const uint32_t off = b_off + tile_offset(n, c);
+        if (kVec)
+          cp_async16_zfill(base + off, from, ok ? 16 : 0);
+        else
+          *reinterpret_cast<uint4*>(gbase + off) = gather8(from, ok, k, p.ci);
+      }
+      return;
     }
     // weight rows k0.., columns col0..: 64-column panels
     constexpr int kRowChunks = kBN / 8;
@@ -280,9 +328,13 @@ conv_wgmma_kernel(WgArgs p) {
     wgmma_fence();
     const uint32_t b_s = a_s + (kHalo ? 0 : kATileBytes);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      Wgmma<kBN>::template run<1>(acc, af[ks],
-                                  wgmma_desc(b_s + 2048 * ks, kPanelBytes));
+    for (int ks = 0; ks < 4; ++ks) {
+      if (kBwd)
+        Wgmma<kBN>::template run<0>(acc, af[ks], wgmma_desc(b_s + 32 * ks));
+      else
+        Wgmma<kBN>::template run<1>(acc, af[ks],
+                                    wgmma_desc(b_s + 2048 * ks, kPanelBytes));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
@@ -318,20 +370,109 @@ conv_wgmma_kernel(WgArgs p) {
     }
   }
 
-  // y, rounded once; with 16-byte rows it goes through shared memory (the
-  // tiles are free) and leaves in 16-byte stores
   const bool in_lo = r_lo < p.n, in_hi = r_lo + 8 < p.n;
+  constexpr int kYStride = kBN * 2 + 16;  // bytes: the pair stores meet no conflict
+  // [2][8 warps][kBN] per-warp column sums, after y's staging area; the tiles
+  // are free
+  float* red = reinterpret_cast<float*>(gbase + kWgRows * kYStride);
+  // kBwd with the prologue and 16-byte rows: x's tile of the block's rows
+  // and columns arrives in y's staging area, where each thread's dx then
+  // replaces its x pair
+  const bool staged = kBwd && kVec && p.part != nullptr;
+  // the block's column sums, over a thread's two rows, then over the eight
+  // row groups of a warp by shuffles, into red: forward (s, q) = (y, y^2)
+  // from the f32 values; backward (da, db) = (dpre x, dpre), and acc becomes dx
+  auto column_sums = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < kN8; ++nt) {
+      float s[2], q[2];
+      if (kBwd) {
+        const int cl = 8 * nt + 2 * t;  // the pair's first column in the block
+        s[0] = s[1] = q[0] = q[1] = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const bool row_in = hf ? in_hi : in_lo;
+          float xv[2];
+          uint32_t* pair =
+              reinterpret_cast<uint32_t*>(gbase + (rl + 8 * hf) * kYStride + 2 * cl);
+          if (staged) {
+            const uint32_t x2 = *pair;
+            xv[0] = __uint_as_float(x2 << 16);
+            xv[1] = __uint_as_float(x2 & 0xffff0000u);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool live = row_in && col0 + cl + e < p.co;
+            if (!staged) {
+              const size_t at = (size_t)(r_lo + 8 * hf) * p.co + col0 + cl + e;
+              xv[e] = live ? __bfloat162float(p.xe[at]) : 0.f;
+            }
+            const float ca = eab[cl + e], cb = eab[kBN + cl + e];
+            const float dz = round_to<bf16>(acc[nt][2 * hf + e]);  // rounded before the mask
+            const float dpre = live && prologue_pre<bf16>(xv[e], ca, cb) > 0.f ? dz : 0.f;
+            acc[nt][2 * hf + e] = __fmul_rn(dpre, ca);  // dx, rounded by the store
+            s[e] += dpre * xv[e];
+            q[e] += dpre;
+          }
+          if (staged) *pair = pack_bf16(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lo = in_lo ? acc[nt][e] : 0.f, hi = in_hi ? acc[nt][2 + e] : 0.f;
+          s[e] = lo + hi;
+          q[e] = lo * lo + hi * hi;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s[e] += __shfl_xor_sync(0xffffffffu, s[e], m);
+          q[e] += __shfl_xor_sync(0xffffffffu, q[e], m);
+        }
+        if (g == 0) {
+          red[warp * kBN + 8 * nt + 2 * t + e] = s[e];
+          red[(8 + warp) * kBN + 8 * nt + 2 * t + e] = q[e];
+        }
+      }
+    }
+  };
+  // the backward's sums make dx, so they come before the store; the
+  // forward's come after it, so that y's stores drain while they run (not
+  // under the ticket's fence)
+  if (kBwd && p.part != nullptr) {
+    __syncthreads();  // every warp is done with the tiles
+    if (staged) {
+      constexpr int kRowChunks = kBN / 8;
+      for (int i = tid; i < kWgRows * kRowChunks; i += kWgThreads) {
+        const int r = i / kRowChunks, c = i % kRowChunks;
+        const int row = row0 + r, col = col0 + 8 * c;
+        const bool ok = row < p.n && col < p.co;
+        cp_async16_zfill(base + r * kYStride + 16 * c,
+                         p.xe + (ok ? (size_t)row * p.co + col : 0), ok ? 16 : 0);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    column_sums();
+  }
+
+  // y (dx), rounded once; with 16-byte rows it goes through shared memory
+  // (dx is there already when staged) and leaves in 16-byte stores
   if (kVec) {
-    constexpr int kYStride = kBN * 2 + 16;  // bytes: the pair stores meet no conflict
     constexpr int kRowChunks = kBN / 8;
     __syncthreads();
+    if (!staged) {
 #pragma unroll
-    for (int nt = 0; nt < kN8; ++nt)
+      for (int nt = 0; nt < kN8; ++nt)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<uint32_t*>(gbase + (rl + 8 * hf) * kYStride + 2 * (8 * nt + 2 * t)) =
-            pack_bf16(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
-    __syncthreads();
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<uint32_t*>(gbase + (rl + 8 * hf) * kYStride + 2 * (8 * nt + 2 * t)) =
+              pack_bf16(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+      __syncthreads();
+    }
     for (int i = tid; i < kWgRows * kRowChunks; i += kWgThreads) {
       const int r = i / kRowChunks, c = i % kRowChunks;
       const int row = row0 + r, col = col0 + 8 * c;
@@ -353,26 +494,12 @@ conv_wgmma_kernel(WgArgs p) {
     }
   }
   if (p.part == nullptr) return;
+  if (!kBwd) {
+    __syncthreads();  // every warp is done with the tiles
+    column_sums();
+  }
 
-  // the block's column sums of y and y^2 from the f32 values
-  float* red = reinterpret_cast<float*>(gbase);  // [2][8 warps][kBN]; the tiles are free
-  __syncthreads();
-#pragma unroll
-  for (int nt = 0; nt < kN8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float lo = in_lo ? acc[nt][e] : 0.f, hi = in_hi ? acc[nt][2 + e] : 0.f;
-      float s = lo + hi, q = lo * lo + hi * hi;
-#pragma unroll
-      for (int m = 4; m < 32; m <<= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, m);
-        q += __shfl_xor_sync(0xffffffffu, q, m);
-      }
-      if (g == 0) {
-        red[warp * kBN + 8 * nt + 2 * t + e] = s;
-        red[(8 + warp) * kBN + 8 * nt + 2 * t + e] = q;
-      }
-    }
+  // over the eight warps in order, into the block's partial
   __syncthreads();
   const int row_blocks = gridDim.x;
   float* mine = p.part + ((size_t)ct * row_blocks + rb) * 2 * kBN;
@@ -389,7 +516,7 @@ conv_wgmma_kernel(WgArgs p) {
   // kSlots strided partial sums of float4 columns, then the slots in order
   constexpr int kCols4 = 2 * kBN / 4;
   constexpr int kSlots = kWgThreads / kCols4;
-  float4* red4 = reinterpret_cast<float4*>(gbase);  // [kSlots][kCols4]
+  float4* red4 = reinterpret_cast<float4*>(red);  // [kSlots][kCols4]
   const int c4 = tid % kCols4, slot = tid / kCols4;
   const float4* src = reinterpret_cast<const float4*>(p.part + (size_t)ct * row_blocks * 2 * kBN);
   float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -411,18 +538,18 @@ conv_wgmma_kernel(WgArgs p) {
   }
 }
 
-template <int kTaps, int kBN, bool kVec, bool kHalo>
+template <int kTaps, int kBN, bool kVec, bool kHalo, bool kBwd>
 cudaError_t launch_wgmma_t(const WgArgs& p, size_t smem, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_wgmma_kernel<kTaps, kBN, kVec, kHalo>,
+        conv_wgmma_kernel<kTaps, kBN, kVec, kHalo, kBwd>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(ceil_div(p.n, kWgRows), ceil_div(p.co, kBN), p.splits);
-  conv_wgmma_kernel<kTaps, kBN, kVec, kHalo><<<grid, kWgThreads, smem, stream>>>(p);
+  conv_wgmma_kernel<kTaps, kBN, kVec, kHalo, kBwd><<<grid, kWgThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -430,24 +557,27 @@ cudaError_t launch_wgmma_t(const WgArgs& p, size_t smem, cudaStream_t stream) {
 // ring leave room for two blocks an SM, else (images too wide for that:
 // more than about 60 pixels at 128 columns, 110 at 64) through a shifted x
 // tile per tap; the 1x1 conv through an x tile per iteration.
-template <int kTaps, int kBN, bool kVec>
+template <int kTaps, int kBN, bool kVec, bool kBwd>
 cudaError_t launch_wgmma_n(const WgArgs& p, cudaStream_t stream) {
-  const size_t fixed = 1024 + 4 * (size_t)ceil_div(p.ci, kWgK) * kWgK + 16;
+  // alignment slack, a and b as bf16 pairs, the ticket flag, kBwd's a and b
+  const size_t fixed =
+      1024 + 4 * (size_t)ceil_div(p.ci, kWgK) * kWgK + 16 + (kBwd ? 8 * kBN : 0);
   const size_t ring = (size_t)kWgStages * kBN * 128;
   if constexpr (kTaps > 1) {
     const size_t halo = 2 * (size_t)halo_rows(p.wd) * 128 + ring + fixed;
     if (halo <= (size_t)kMaxSmem / 2)
-      return launch_wgmma_t<kTaps, kBN, kVec, true>(p, halo, stream);
+      return launch_wgmma_t<kTaps, kBN, kVec, true, kBwd>(p, halo, stream);
   }
   const size_t smem = (size_t)kWgStages * kATileBytes + ring + fixed;
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  return launch_wgmma_t<kTaps, kBN, kVec, false>(p, smem, stream);
+  return launch_wgmma_t<kTaps, kBN, kVec, false, kBwd>(p, smem, stream);
 }
 
-// The bf16 forward: checks the plan (block_n columns a block; `splits`
-// splits of `per_split` contraction iterations each, every split holding at
-// least one) and picks the instantiation.
-template <int kTaps>
+// The bf16 forward (or, kBwd, the backward's dx pass): checks the plan
+// (block_n columns a block; `splits` splits of `per_split` contraction
+// iterations each, every split holding at least one) and picks the
+// instantiation.
+template <int kTaps, bool kBwd = false>
 cudaError_t launch_forward_wgmma(WgArgs p, int block_n, cudaStream_t stream) {
   const long long total = (long long)kTaps * ceil_div(p.ci, kWgK);
   const long long tiles = (long long)ceil_div(p.n, kWgRows) * ceil_div(p.co, block_n);
@@ -456,18 +586,20 @@ cudaError_t launch_forward_wgmma(WgArgs p, int block_n, cudaStream_t stream) {
       (long long)(p.splits - 1) * p.per_split >= total ||
       ceil_div(p.co, block_n) > 65535 || (p.splits > 1 && p.scratch == nullptr) ||
       (p.sq != nullptr && p.part == nullptr) || p.counters == nullptr ||
-      tiles * p.splits > (1LL << 31) || (kTaps > 1 && p.a == nullptr))
+      tiles * p.splits > (1LL << 31) || (kTaps > 1 && p.a == nullptr) ||
+      (kBwd && p.sq != nullptr && (p.a == nullptr || p.xe == nullptr)))
     return cudaErrorInvalidValue;
   const bool vec = p.ci % 8 == 0 && p.co % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.w) |
-                     reinterpret_cast<uintptr_t>(p.y)) & 15) == 0;
+                     reinterpret_cast<uintptr_t>(p.y) | reinterpret_cast<uintptr_t>(p.xe)) &
+                    15) == 0;
   switch (block_n) {
     case 64:
-      return vec ? launch_wgmma_n<kTaps, 64, true>(p, stream)
-                 : launch_wgmma_n<kTaps, 64, false>(p, stream);
+      return vec ? launch_wgmma_n<kTaps, 64, true, kBwd>(p, stream)
+                 : launch_wgmma_n<kTaps, 64, false, kBwd>(p, stream);
     case 128:
-      return vec ? launch_wgmma_n<kTaps, 128, true>(p, stream)
-                 : launch_wgmma_n<kTaps, 128, false>(p, stream);
+      return vec ? launch_wgmma_n<kTaps, 128, true, kBwd>(p, stream)
+                 : launch_wgmma_n<kTaps, 128, false, kBwd>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }

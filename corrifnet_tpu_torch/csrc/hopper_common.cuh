@@ -2,9 +2,9 @@
 // shared by the attention kernels (attention_common.cuh) and the fused
 // bottleneck convolutions (fusedconv_common.cuh): 16-byte cp.async with
 // zero fill, bf16 shared tiles of 128-byte rows in the 128-byte swizzle,
-// ldmatrix for A fragments, bf16 packing, the wgmma shared-memory matrix
-// descriptor, and wgmma.mma_async with bf16 operands, the A operand in
-// registers and f32 accumulators (m64n64k16, m64n128k16).
+// ldmatrix (plain and transposed) for A fragments, bf16 packing, the wgmma
+// shared-memory matrix descriptor, and wgmma.mma_async with bf16 operands,
+// the A operand in registers and f32 accumulators (m64n64k16, m64n128k16).
 
 #pragma once
 
@@ -44,6 +44,16 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The same four 8x8 matrices, each transposed on the way: lane (g, t) gets
+// elements (rows 2t, 2t + 1; column g) of the matrix as stored, so a tile
+// stored [k][m] gives A fragments (m, k) (the low half the lower k).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");

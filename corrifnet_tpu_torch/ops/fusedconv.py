@@ -22,23 +22,25 @@ rounded to the compute dtype; ``dw`` accumulates in f32 and is then cast;
 in f32.
 
 Kernels (CUDA C++, ``csrc/fusedconv_pw.cu`` and ``csrc/fusedconv_c3.cu`` over
-``csrc/fusedconv_common.cuh`` and ``csrc/fusedconv_wgmma.cuh``): K4a replaces
-``_pw_kernel``, K4b ``_pw_bwd_kernel``, K4c ``_c3_kernel``, K4d
-``_c3_bwd_kernel`` (``corrifnet_tpu/ops/fusedconv.py:142,211,418,514``). The
-kernel is chosen by dtype, never by shape: bfloat16 forwards (K4a, K4c) run
-on the tensor cores (``wgmma``, one launch with the statistics, the
-contraction split over blocks by ``forward_plan``); float32 forwards and
-every backward run the f32 FMA kernels. Channels that are not a multiple
-of 8, or operands that are not 16-byte aligned, run the same bfloat16
-kernel with element loads instead of 16-byte copies. The TPU kernels add
-into one resident block over a sequential grid; thread blocks cannot, so
-every sum across blocks (``s``, ``q``, ``da``, ``db``, ``dw``, the split
-contraction) is written as per-block partial sums into a scratch buffer
-and added in a fixed order: by the last block to arrive (an integer
-ticket; the counters are one buffer per CUDA stream, 0 on entry and left
-at 0) in the bfloat16 forward, by a second pass elsewhere. No float
-atomics: two runs give the same bits. Each wrapper's count goes up by one
-per call, whatever the number of passes.
+``csrc/fusedconv_common.cuh``, ``csrc/fusedconv_wgmma.cuh`` and
+``csrc/fusedconv_wgmma_bwd.cuh``): K4a replaces ``_pw_kernel``, K4b
+``_pw_bwd_kernel``, K4c ``_c3_kernel``, K4d ``_c3_bwd_kernel``
+(``corrifnet_tpu/ops/fusedconv.py:142,211,418,514``). The kernel is chosen
+by dtype, never by shape: in bfloat16 all four run on the tensor cores
+(``wgmma``): a forward is one launch with the statistics, its contraction
+split over blocks by ``forward_plan``; a backward is three launches (g
+written once, the dx pass with da and db, the dw pass), planned by
+``backward_plan``. In float32 all four run the f32 FMA kernels. Channels
+that are not a multiple of 8, or operands that are not 16-byte aligned, run
+the same bfloat16 kernels with element loads instead of 16-byte copies. The
+TPU kernels add into one resident block over a sequential grid; thread
+blocks cannot, so every sum across blocks (``s``, ``q``, ``da``, ``db``,
+``dw``, the split contraction) is written as per-block partial sums into a
+scratch buffer and added in a fixed order: by the last block to arrive (an
+integer ticket; the counters are one buffer per CUDA stream, 0 on entry and
+left at 0) in bfloat16, by a second pass in float32. No float atomics: two
+runs give the same bits. Each wrapper's count goes up by one per call,
+whatever the number of passes.
 
 Each wrapper takes its plain version below for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +58,7 @@ import torch.nn.functional as F
 from corrifnet_tpu_torch.ops.build import load_cuda_library
 
 __all__ = [
+    "backward_plan",
     "conv3x3_fma_relu_stats",
     "conv3x3_fma_relu_stats_backward_plain",
     "conv3x3_fma_relu_stats_bwd",
@@ -75,6 +79,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the SMs of an H100 (scripts/bench_torch_fusedconv.py: splitting further
 # cost more than it gave at the model's shapes)
 WG_ROWS, WG_DEPTH, WG_BLOCKS = 128, 64, 66
+# the bfloat16 backward's dw pass (csrc/fusedconv_wgmma_bwd.cuh): channels
+# of x and of g a block (the 64 x 64 tile of dw) and pixels a stage; the
+# blocks its split over the rows aims for (two per SM of an H100) and the
+# fewest stages a split holds, so that a split's f32 partial tile stays
+# small beside what it reads (scripts/bench_torch_fusedconv.py: 8 stages a
+# split cost more in partial tiles than the blocks gave at the 1x1 shapes)
+DW_TILE, DW_STAGE, DW_BLOCKS, DW_MIN_STAGES = 64, 64, 264, 16
 
 
 # ------------------------------------------------------------ plain versions
@@ -170,7 +181,7 @@ def _pointwise_library():
     lib = load_cuda_library("fusedconv_pw.cu")
     fwd, bwd = lib.corrifnet_pw_fwd, lib.corrifnet_pw_bwd
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -180,7 +191,7 @@ def _conv3x3_library():
     lib = load_cuda_library("fusedconv_c3.cu")
     fwd, bwd = lib.corrifnet_c3_fwd, lib.corrifnet_c3_bwd
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -245,10 +256,10 @@ def _f32(shape, like):
 
 
 def wgrad_plan(rows, ci, co, taps):
-    """(splits, rows per split) of the weight-gradient pass: the contraction
-    over the rows is cut so that about ``_WGRAD_BLOCKS`` blocks run, each
-    over at least 128 rows; the splits' partial products are added in order
-    by the second pass."""
+    """(splits, rows per split) of the float32 weight-gradient pass: the
+    contraction over the rows is cut so that about ``_WGRAD_BLOCKS`` blocks
+    run, each over at least 128 rows; the splits' partial products are added
+    in order by the second pass."""
     tiles = -(-ci // TILE) * -(-co // TILE) * taps
     splits = max(1, min(-(-rows // 128), _WGRAD_BLOCKS // tiles))
     chunk = -(-(-(-rows // splits)) // 16) * 16
@@ -273,11 +284,42 @@ def forward_plan(rows, ci, co, taps, block_n=None, blocks=WG_BLOCKS):
     return block_n, -(-iters // per), per
 
 
+def backward_plan(rows, ci, co, taps, dx_block_n=None, dx_blocks=WG_BLOCKS,
+                  dw_blocks=DW_BLOCKS):
+    """The plan of the bfloat16 backward: ``((block_n, splits, per_split)``
+    of the dx pass, ``(splits, stages per split, splits per group))`` of the
+    dw pass.
+
+    The dx pass is the forward's product with the roles swapped (the
+    contraction over ``taps * co``, the columns ``ci``), so its plan is
+    ``forward_plan(rows, co, ci, taps, block_n)``, with 128 columns a block
+    only where ci > 64 and 128-column tiles number at least ``WG_BLOCKS``
+    (fewer and wider tiles split the deep contraction more, which cost more
+    than 64-column tiles at the few-row shapes). The dw pass computes a 64 x
+    64 tile of dw a block, one tap a block, over stages of 64 pixels; the
+    stages are split over blocks until about ``dw_blocks`` blocks run or a
+    split would hold fewer than ``DW_MIN_STAGES`` (at least one split, every
+    split at least one stage). Its split partials are added by groups of
+    about sqrt(splits), then the groups' sums, each in index order. A
+    function of the shape only. The wrappers take the defaults;
+    ``scripts/bench_torch_fusedconv.py`` times other widths and targets."""
+    if dx_block_n is None:
+        wide = ci > 64 and -(-rows // WG_ROWS) * -(-ci // 128) >= WG_BLOCKS
+        dx_block_n = 128 if wide else 64
+    dx = forward_plan(rows, co, ci, taps, dx_block_n, dx_blocks)
+    tiles = -(-ci // DW_TILE) * -(-co // DW_TILE) * taps
+    stages = -(-rows // DW_STAGE)
+    want = max(1, min(-(-dw_blocks // tiles), stages // DW_MIN_STAGES))
+    per = -(-stages // want)
+    splits = -(-stages // per)
+    return dx, (splits, per, math.isqrt(splits - 1) + 1)
+
+
 _COUNTERS = {}
 
 
 def _counters(x, size):
-    """Ticket counters of the bfloat16 forward on x's device and current
+    """Ticket counters of the bfloat16 kernels on x's device and current
     stream. The kernel needs them 0 on entry and leaves them 0, so launches
     that share them must run in order: one buffer per stream (two streams
     never share one), kept between calls and grown when a shape needs more;
@@ -323,16 +365,36 @@ def _launch_backward(x, w, a, b, y, dy, ds, dq, taps):
     _check_cotangents(x, w, y, dy, ds, dq)
     launch = _library(taps)[1]
     pro = a is not None
-    splits, chunk = wgrad_plan(rows, ci, co, taps)
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     dab = _f32((2, ci), x) if pro else None
-    part = _f32((-(-rows // TILE), 2, ci), x) if pro else None
-    dw_part = _f32((splits, *w.shape), x)
+    g = scratch = counters = None
+    if x.dtype == torch.bfloat16:
+        splits = chunk = 0
+        dx_plan, dw_plan = backward_plan(rows, ci, co, taps)
+        (dx_n, dx_splits, _), (dw_splits, _, group) = dx_plan, dw_plan
+        row_blocks, col_tiles = -(-rows // WG_ROWS), -(-ci // dx_n)
+        g = torch.empty((rows, co), dtype=x.dtype, device=x.device)
+        part = _f32((col_tiles, row_blocks, 2, dx_n), x) if pro else None
+        if dx_splits > 1:
+            scratch = _f32((row_blocks * col_tiles, dx_splits, WG_ROWS, dx_n), x)
+        tiles = -(-ci // DW_TILE) * -(-co // DW_TILE) * taps
+        groups = -(-dw_splits // group)
+        dw_part = (_f32((tiles, dw_splits + groups, DW_TILE, DW_TILE), x)
+                   if dw_splits > 1 else None)
+        counters = _counters(x, max(row_blocks * col_tiles + col_tiles,
+                                    tiles * groups + tiles))
+        plan = (*dx_plan, *dw_plan)
+    else:
+        splits, chunk = wgrad_plan(rows, ci, co, taps)
+        part = _f32((-(-rows // TILE), 2, ci), x) if pro else None
+        dw_part = _f32((splits, *w.shape), x)
+        plan = (0,) * 6
     dims = (rows, ci, co) if taps == 1 else (*x.shape[:3], ci, co)
     flags = (int(pro),) if taps == 1 else ()
     err = launch(_ptr(x), _ptr(w), _ptr(a), _ptr(b), _ptr(y), _ptr(dy), _ptr(ds),
                  _ptr(dq), _ptr(dx), _ptr(dw), _ptr(dab), _ptr(part), _ptr(dw_part),
-                 *dims, splits, chunk, _DTYPE_CODES[x.dtype], *flags, _stream(x))
+                 _ptr(g), _ptr(scratch), _ptr(counters), *dims, splits, chunk,
+                 _DTYPE_CODES[x.dtype], *flags, *plan, _stream(x))
     if err != 0:
         raise RuntimeError(f"fused conv backward ({taps} taps) launch failed: "
                            f"cudaError {err}")
@@ -359,7 +421,7 @@ def pointwise_conv_stats_bwd(x, w, a, b, y, dy, ds, dq):
     """``(dx, dw, da, db)`` of ``pointwise_conv_stats`` on rows ``(n, ci)``
     from its inputs, its output ``y`` and the three cotangents. CPU tensors:
     the plain formula. CUDA tensors: kernel K4b (its passes count as one
-    launch), or an exception; never the plain version."""
+    launch), or an exception; never the plain version or another kernel."""
     if _on_cpu(x):
         return pointwise_conv_stats_backward_plain(x, w, a, b, y, dy, ds, dq)
     out = _launch_backward(x, w, a, b, y, dy, ds, dq, 1)

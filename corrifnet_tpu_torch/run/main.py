@@ -4,16 +4,20 @@ Counterpart of ``corrifnet_tpu/run/main.py``. Flow (F2_MAIN.py:45-313):
 read the config -> CrossVal fold split -> load and normalize the data ->
 build the model by ``modeltype`` -> Adam or SGD under the epoch-start StepLR
 -> a dated run directory with the log files -> train (per-epoch checkpoint
-and validation) -> test with FPS -> a dated human-readable summary.
+and validation) -> test with FPS (+ the segplot family of the first test
+image) -> a dated human-readable summary -> the learning and accuracy
+curve PNGs.
 
     python -m corrifnet_tpu_torch.run.main --config experiments/model0.txt \\
         [--run-root experiments] [--index 0] [--synthetic-seed 0] [--device cuda]
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU the default
-raises, it never falls back to the CPU. Still to be ported (see ROADMAP.md),
+raises, it never falls back to the CPU. The curve PNGs need matplotlib:
+without it one printed line names the files that were not written (the
+segplot PNGs have their own writer). Still to be ported (see ROADMAP.md),
 and refused by the CLI when asked for: ``--resume``, ``--train-deadline-s``,
-``--indices``, the curve PNGs, the segplot overlay and ``transfertype``
-warm starts; and the config fields ``config.check_supported`` names.
+``--indices`` and ``transfertype`` warm starts; and the config fields
+``config.check_supported`` names.
 ``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
 the fused convolution kernels.
 """
@@ -24,12 +28,14 @@ import argparse
 import datetime
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from corrifnet_tpu_torch.config import ExperimentConfig, check_supported, load_config
 from corrifnet_tpu_torch.data import cross_val, load_dstl
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.run.evaluate import compute_dtype
+from corrifnet_tpu_torch.run.segplot import segplot
 from corrifnet_tpu_torch.train import (
     Checkpointer,
     init_state,
@@ -83,13 +89,19 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
             logs=logs, ckpt=ckpt, i=index, seed=cfg.seed,
             val_from_checkpoint=cfg.val_from_checkpoint,
         )
-        test_loss, test_jac, fps, _ = test_model(
+        test_loss, test_jac, fps, first_outputs = test_model(
             model, data.images, data.masks, tsind, cfg.mini_batch_size, cfg.lim,
             logs, ckpt, i=index,
         )
+        # first-test-image overlay (F7_TEST2.py:136-166)
+        first = tsind[0]
+        segplot(run_dir, cfg.lim, np.moveaxis(data.images[first, 0], 0, -1),
+                first_outputs[0, 0, 0], data.masks[first, 0, 0],
+                data.tr_mean_r, data.tr_mean_g, data.tr_mean_b)
     finally:
         logs.close()
     _write_summary_log(run_dir, cfg, begin, trind, vlind, test_jac, model)
+    _write_curves(run_dir, history)
 
     if device.type == "cuda":
         # device-memory telemetry (F2_MAIN.py:306-309)
@@ -131,6 +143,36 @@ def _write_summary_log(run_dir, cfg, begin, trind, vlind, test_jac, model):
         f.write("Channel index:" + str(cfg.chindex) + "\n")
         f.write("Transfer:" + str(cfg.transfertype) + "\n")
         f.write("Model Summary:\n" + repr(model) + "\n")
+
+
+_CURVE_FILES = ("learning_curves.png", "accuracy_curves.png")
+
+
+def _write_curves(run_dir, history):
+    """Learning and accuracy curve PNGs (F2_MAIN.py:290-304); without
+    matplotlib, one line naming the files not written."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print("matplotlib is not installed: not written:", ", ".join(_CURVE_FILES))
+        return
+    plt.figure()
+    plt.plot(history["train_loss"], "k-", label="Train Loss")
+    plt.plot(history["val_loss"], "r--", label="Validation Loss")
+    plt.title("Learning Curves")
+    plt.legend(loc="upper left")
+    plt.savefig(Path(run_dir) / _CURVE_FILES[0])
+    plt.close()
+    plt.figure()
+    plt.plot(history["train_jac"], "k-", label="Train Accuracy")
+    plt.plot(history["val_jac"], "r--", label="Validation Accuracy")
+    plt.title("Accuracy Curves")
+    plt.legend(loc="upper left", bbox_to_anchor=(1, 1))
+    plt.savefig(Path(run_dir) / _CURVE_FILES[1], bbox_inches="tight")
+    plt.close()
 
 
 def main(argv=None):

@@ -84,8 +84,13 @@ _KINDS = [
 # template arguments: <T, taps, backward, ...> and <T, taps, ...>
 _K4_ROWS = re.compile(r"rows_kernel<[^,]+, *(?:\(int\))?(\d), *(?:\(bool\))?(\w+)")
 _K4_WGRAD = re.compile(r"wgrad_kernel<[^,]+, *(?:\(int\))?(\d)")
-# the bf16 forwards on the tensor cores (csrc/fusedconv_wgmma.cuh): <taps, ...>
-_K4_WGMMA = re.compile(r"conv_wgmma_kernel<(?:\(int\))?(\d)")
+# the bf16 kernels on the tensor cores (csrc/fusedconv_wgmma.cuh,
+# csrc/fusedconv_wgmma_bwd.cuh): the forwards and the backwards' dx passes
+# <taps, block_n, vec, halo, backward>, the dw passes <taps, ...>, the g
+# passes <taps, vec>
+_K4_WGMMA = re.compile(r"conv_wgmma_kernel<(?:\(int\))?(\d),(?:[^,>]*,){3} *(?:\(bool\))?(\w+)>")
+_K4_WGRAD_WGMMA = re.compile(r"wgrad_wgmma_kernel<(?:\(int\))?(\d)")
+_K4_COTANGENT = re.compile(r"cotangent_kernel<(?:\(int\))?(\d)")
 
 
 def kind_of(name):
@@ -100,11 +105,18 @@ def kind_of(name):
                 (False, True): "K4d fused 3x3 conv backward (dx, da, db)"}[pointwise, backward]
     m = _K4_WGMMA.search(name)
     if m:
+        if m.group(2) in ("1", "true"):
+            return ("K4b fused 1x1 conv backward (dx, da, db)" if m.group(1) == "1"
+                    else "K4d fused 3x3 conv backward (dx, da, db)")
         return "K4a fused 1x1 conv forward" if m.group(1) == "1" else "K4c fused 3x3 conv forward"
-    m = _K4_WGRAD.search(name)
+    m = _K4_WGRAD_WGMMA.search(name) or _K4_WGRAD.search(name)
     if m:
         return ("K4b fused 1x1 conv backward (dw)" if m.group(1) == "1"
                 else "K4d fused 3x3 conv backward (dw)")
+    m = _K4_COTANGENT.search(name)
+    if m:
+        return ("K4b fused 1x1 conv backward (g)" if m.group(1) == "1"
+                else "K4d fused 3x3 conv backward (g)")
     if "reduce_partials" in name:
         return "K4a-d partial sums added in order"
     low = name.lower()

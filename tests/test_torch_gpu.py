@@ -159,6 +159,9 @@ def _k4_run(fn, args, cotangents):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(_K4_CASES))
 def test_fused_conv_kernels(cuda, case, dtype):
+    """K4a-d through their autograd.Function against the plain versions: f32
+    the FMA kernels, bf16 the tensor-core kernels (forward, and the three
+    launches of the backward); two runs give the same bits."""
     taps, args, cotangents = _k4_inputs(case, cuda, dtype)
     name = "pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"
     fwd, bwd = ops.KERNELS[name], ops.KERNELS[name + "_bwd"]
@@ -214,6 +217,31 @@ def test_bf16_fused_conv_forwards_on_two_streams_keep_their_bits(cuda, case):
         assert all(torch.equal(u, v) for u, v in zip(out, want))
 
 
+@pytest.mark.parametrize("case", ["pw_split", "c3_split", "pw_layer1", "c3_layer1"])
+def test_bf16_fused_conv_backwards_on_two_streams_keep_their_bits(cuda, case):
+    """bf16 backwards with split-K (the dx pass's in the *_split cases, the
+    dw pass's, in groups, in the *_layer1 cases) queued 16 times on each of
+    two streams at once: each stream has its own ticket counters, so every
+    call gives the bits of a call alone."""
+    taps, args, cots = _k4_inputs(case, cuda, torch.bfloat16)
+    name = "pointwise_conv_stats" if taps == 1 else "conv3x3_fma_relu_stats"
+    bwd = ops.KERNELS[name + "_bwd"]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    with torch.no_grad():
+        y = ops.KERNELS[name](*args)[0]
+        want = bwd(*args, y, *cots)
+        outs = []
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream())
+        for _ in range(16):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs.append(bwd(*args, y, *cots))
+        torch.cuda.synchronize()
+    for out in outs:
+        assert all(u is None and v is None or torch.equal(u, v) for u, v in zip(out, want))
+
+
 @pytest.mark.parametrize("stride,down", [(1, False), (1, True), (2, True)])
 def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda, stride, down):
     """One train step of a fused bottleneck in f32: output, running
@@ -251,6 +279,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w64 = (_randn((64, 128), cuda) / 8).bfloat16()
     for got, ref in zip(ops.pointwise_conv_stats(shifted, w64),
                         ops.pointwise_conv_stats(shifted.clone(), w64)):
+        assert torch.equal(got, ref)
+    # the bf16 backward likewise: the same bits with element loads
+    with torch.no_grad():
+        y64 = ops.pointwise_conv_stats(shifted, w64)[0]
+    cots = (torch.ones_like(y64), torch.zeros(128, device="cuda"),
+            torch.full((128,), 0.01, device="cuda"))
+    a64, b64 = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    for got, ref in zip(ops.pointwise_conv_stats_bwd(shifted, w64, a64, b64, y64, *cots),
+                        ops.pointwise_conv_stats_bwd(shifted.clone(), w64, a64, b64, y64,
+                                                     *cots)):
         assert torch.equal(got, ref)
     with pytest.raises(ValueError):
         ops.pointwise_conv_stats(x16.half(), w16.half())

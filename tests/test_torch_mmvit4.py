@@ -131,7 +131,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                 "models.registry", "models.resnet3d", "nn", "nn.conv", "nn.init",
                 "nn.norm", "nn.resize", "nn.transformer", "ops", "ops.attention",
                 "ops.build", "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
-                "run.evaluate", "run.main", "testing", "train",
+                "run.evaluate", "run.main", "run.segplot", "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
                 "train.state", "utils", "utils.logfiles"):
         importlib.import_module("corrifnet_tpu_torch." + mod)

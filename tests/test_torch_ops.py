@@ -10,6 +10,8 @@ tensors only, and to raise for a CUDA tensor when no kernel can be built.
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -502,6 +504,65 @@ def test_forward_plan_does_not_depend_on_stats(xs, co, taps, monkeypatch):
     assert with_stats == without == plan
     assert calls[0][5] is not None and calls[1][5] is None  # the column partials
     assert (calls[0][7] is None) == (plan[1] == 1)  # split-K scratch
+
+
+@pytest.mark.parametrize("rows,ci,co,taps", _model_forward_shapes()
+                         + [(48, 33, 40, 1), (126, 16, 24, 9), (150, 1024, 256, 1),
+                            (294, 256, 256, 9), (1, 8, 8, 1)])
+def test_backward_plan_covers_the_rows(rows, ci, co, taps):
+    """The bf16 backward's plan: the dx pass takes the forward's plan with
+    the roles swapped (128 columns only where 128-column tiles are at least
+    ``WG_BLOCKS``); the dw pass's splits hold every 64-pixel stage once,
+    none is empty, a split holds at least ``DW_MIN_STAGES`` unless there is
+    one, and the groups of splits cover the splits with no empty group."""
+    dx, (splits, per, group) = t_fc.backward_plan(rows, ci, co, taps)
+    assert dx == t_fc.forward_plan(rows, co, ci, taps, dx[0])
+    tiles128 = -(-rows // t_fc.WG_ROWS) * -(-ci // 128)
+    assert dx[0] == (128 if ci > 64 and tiles128 >= t_fc.WG_BLOCKS else 64)
+    stages = -(-rows // t_fc.DW_STAGE)
+    assert splits >= 1 and per >= 1 and group >= 1
+    assert (splits - 1) * per < stages <= splits * per
+    assert splits == 1 or per >= t_fc.DW_MIN_STAGES
+    groups = -(-splits // group)
+    assert (groups - 1) * group < splits <= groups * group
+    assert max(group, groups) <= math.isqrt(splits) + 1
+
+
+@pytest.mark.parametrize("xs,co,taps,pro", [((300, 64), 256, 1, True),
+                                            ((37632, 64), 64, 1, False),
+                                            ((12, 7, 7, 512), 512, 9, True)])
+def test_backward_launch_takes_the_plan(xs, co, taps, pro, monkeypatch):
+    """The bf16 backward is launched with ``backward_plan``'s plan and
+    scratch of its size; the f32 backward with ``wgrad_plan`` and no g,
+    split scratch or counters."""
+    calls = []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(t_fc, "_library", lambda taps: (None, launch))
+    monkeypatch.setattr(t_fc, "_counters", lambda x, size: torch.zeros(size))
+    monkeypatch.setattr(t_fc, "_stream", lambda x: 0)
+    monkeypatch.setattr(t_fc, "_ptr", lambda t: t)  # the launch sees the tensors
+    ci = xs[-1]
+    a, b = (torch.ones(ci), torch.zeros(ci)) if pro else (None, None)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(xs, dtype=dtype)
+        w = torch.zeros((ci, co) if taps == 1 else (3, 3, ci, co), dtype=dtype)
+        y = torch.zeros((*xs[:-1], co), dtype=dtype)
+        t_fc._launch_backward(x, w, a, b, y, y, torch.zeros(co), torch.zeros(co), taps)
+    rows = int(np.prod(xs[:-1]))
+    (dx_n, dx_splits, dx_per), dw = t_fc.backward_plan(rows, ci, co, taps)
+    bf, f32 = calls
+    assert bf[-7:-1] == (dx_n, dx_splits, dx_per, *dw) and f32[-7:-1] == (0,) * 6
+    assert bf[13] is not None and (bf[14] is None) == (dx_splits == 1)
+    assert (bf[12] is None) == (dw[0] == 1) and bf[15] is not None
+    if dw[0] > 1:  # the split partials, then the groups' sums
+        tiles = -(-ci // t_fc.DW_TILE) * -(-co // t_fc.DW_TILE) * taps
+        groups = -(-dw[0] // dw[2])
+        assert bf[12].shape == (tiles, dw[0] + groups, t_fc.DW_TILE, t_fc.DW_TILE)
+    assert f32[13] is None and f32[14] is None and f32[15] is None
 
 
 # ---------------------------------------------------------------- wrappers

@@ -677,6 +677,12 @@ def test_training_cli_on_cpu(tmp_path, monkeypatch):
         assert 0.5 <= loss <= 1.0
     assert len(list(run_dir.glob("2*_*.txt"))) == 1  # the dated summary
     assert "Model version:MMVit4" in next(run_dir.glob("2*_*.txt")).read_text()
+    # the first test image's segplot family, and the curves (matplotlib is
+    # installed here)
+    for name in ("segmentation_image", "test_image", "test_image_R", "test_image_G",
+                 "test_image_B", "test_pred_mask", "ground_truth_mask",
+                 "learning_curves", "accuracy_curves"):
+        assert (run_dir / f"{name}.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name
 
     ckpt = Checkpointer(run_dir)
     assert ckpt.exists("iremmodel0") and ckpt.exists("Finaliremmodel0")
