@@ -7,7 +7,7 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 
 1. device: exit 1 when torch.cuda.is_available() is False; print the
    card's name and power limit as nvidia-smi gives them;
-2. build: compile the four CUDA C++ sources with nvcc (in parallel) and load
+2. build: compile the five CUDA C++ sources with nvcc (in parallel) and load
    them; ptxas's registers and spills of every kernel are printed, and the
    HGMMA (wgmma) instructions of every bf16 tensor-core kernel in the SASS
    (``cuobjdump -sass``), none of which may have none;
@@ -20,7 +20,11 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    wrappers with no gradient asked for (K2f without the logsumexp), then all five
    at the training shapes (B=4) through the wrappers on leaves that need
    gradients and ``backward``: K1f, K1b, K2f with dropout 0.1 and the
-   logsumexp, K2b at rate 0 and 0.1, K3. With dropout on, the plain
+   logsumexp, K2b at rate 0 and 0.1, K3 and K3b (its backward, on the
+   statistics K3 saved; two runs and runs queued on two streams give the
+   same bits; both with their device time, the library's and the bound,
+   the library being ``F.instance_norm(F.relu(x))`` on NCDHW, its backward
+   through ``autograd.grad``). With dropout on, the plain
    version gets the kernels' Philox mask and the comparison is element by
    element; the mask each of the kernels' three device functions writes is
    held against ``philox_keep_mask`` exactly. K2f and K2b are reached as
@@ -50,13 +54,13 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the share of the bound, and the sums over one forward or step;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
-   and read just after (K1 >= 1, K2 >= 2, K3 = 27 launches per forward);
+   and read just after (K1 >= 1, K2 >= 2, K3 = 27, K3b 0 launches per forward);
    then over 48 images, timed;
 5. the training slice: ``run.main.main`` at full width (MMVit4, 224x224,
    B=4, bf16, dropout 0.1) for one epoch of 8 steps over 40 synthetic
    patches, with validation by checkpoint and the test; counters reset just
    before and read just after: per training step K1f 1, K1b 1, K2f 4, K2b 4
-   (its dq and dk/dv passes count as one launch), K3 27; the log
+   (its dq and dk/dv passes count as one launch), K3 27, K3b 27; the log
    files, both checkpoints and the segplot PNGs exist (the curve PNGs too
    where matplotlib is installed); losses in the double-sigmoid band;
    step seconds, patches/s and peak memory are printed;
@@ -115,8 +119,11 @@ KERNEL_INFO = {
                         "corrifnet_tpu/ops/attention.py:206"),
     "fused_attention_bwd": ("cuda", "corrifnet_tpu_torch/csrc/attention_bwd.cu",
                             "corrifnet_tpu/ops/attention.py:300"),
-    "relu_instancenorm": ("triton", "corrifnet_tpu_torch/ops/instancenorm.py",
+    "relu_instancenorm": ("cuda", "corrifnet_tpu_torch/csrc/instancenorm.cu",
                           "corrifnet_tpu/ops/instancenorm.py:67"),
+    # the port's own backward: it stands for XLA's fusion of _vjp_bwd
+    "relu_instancenorm_bwd": ("cuda", "corrifnet_tpu_torch/csrc/instancenorm.cu",
+                              "corrifnet_tpu/ops/instancenorm.py:142"),
     "pointwise_conv_stats": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_pw.cu",
                              "corrifnet_tpu/ops/fusedconv.py:142"),
     "pointwise_conv_stats_bwd": ("cuda", "corrifnet_tpu_torch/csrc/fusedconv_pw.cu",
@@ -130,7 +137,7 @@ KERNEL_INFO = {
 K4_KERNELS = ("pointwise_conv_stats", "pointwise_conv_stats_bwd",
               "conv3x3_fma_relu_stats", "conv3x3_fma_relu_stats_bwd")
 CUDA_SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "fusedconv_pw.cu",
-                "fusedconv_c3.cu")
+                "fusedconv_c3.cu", "instancenorm.cu")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core rate, same sheet
 EVAL_B = 8   # per_image_metrics batch: max(mini_batch_size=4, 8)
@@ -501,29 +508,116 @@ def check_correlation(ops, tally, b, gen, backward):
               bytes_bound_ms(21 * m), "bytes", None)
 
 
-def check_instancenorm(ops, tally, b, gen):
-    name = "relu_instancenorm"
+def k3_streams(fn, lone, calls=4):
+    """``calls`` runs of ``fn`` queued on each of two streams at once, each
+    result against the lone call's bits (the grid barrier's counters are
+    one pair a stream)."""
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(calls):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(fn())
+    torch.cuda.synchronize()
+    return all(torch.equal(o, lone) for o in outs)
+
+
+def check_instancenorm(ops, tally, b, gen, backward):
+    """K3 at every decoder shape (and with ``backward`` K3b, on the
+    statistics K3 saved) against the plain versions: f32 within K3_ATOL +
+    K3_RTOL rel, bf16 within 2 bf16 ulps of the plain version run in f32 on
+    the same inputs plus the f32 bound; two runs and runs queued on two
+    streams give the same bits. Times in bf16: the call (median of single
+    calls: K3 with no gradient asked for, K3b through ``autograd.grad``),
+    the plain version and the library's ``F.instance_norm(F.relu(x))`` on
+    the NCDHW layout (its backward through ``autograd.grad``), and both
+    device times from profiler traces."""
+    from corrifnet_tpu_torch.ops import instancenorm as t_in
+
     for shape, calls in k3_shapes(b):
         x = randn(shape, gen, 0.2)
         x16 = x.bfloat16()
+        name = "relu_instancenorm"
         got, want = ops.relu_instancenorm(x), ops.relu_instancenorm_plain(x)
         err = (got - want).abs()
         tally.check((err <= K3_ATOL + K3_RTOL * want.abs()).all(),
                     f"{name} {shape} f32 {err.max().item():.3e}")
         ref = ops.relu_instancenorm_plain(x16.float())
-        e16 = (ops.relu_instancenorm(x16).float() - ref).abs()
+        y16 = ops.relu_instancenorm(x16)
+        e16 = (y16.float() - ref).abs()
         tally.check((e16 <= 2 * bf16_ulp(ref) + K3_ATOL + K3_RTOL * ref.abs()).all(),
                     f"{name} {shape} bf16")
+        same = torch.equal(ops.relu_instancenorm(x16), y16) and k3_streams(
+            lambda: ops.relu_instancenorm(x16), y16)
+        tally.check(same, f"{name} {shape}: runs differ")
+        del ref, got, want
         ncdhw = x16.permute(0, 4, 1, 2, 3).contiguous()
-        k_ms = median_ms(lambda: ops.relu_instancenorm(x16))
-        p_ms = median_ms(lambda: ops.relu_instancenorm_plain(x16))
-        l_ms = median_ms(lambda: F.instance_norm(F.relu(ncdhw)))
-        log(f"  {name} {shape}: f32 max_abs {err.max().item():.3e} (bound {K3_ATOL} + "
-            f"{K3_RTOL} rel); bf16 max_abs {e16.max().item():.3e} (bound 2 bf16 ulps "
-            f"+ the f32 bound); bf16 kernel {k_ms:.4f} plain {p_ms:.4f} library "
-            f"{l_ms:.4f} ms")
-        tally.add(name, calls, e16.max().item(), k_ms, p_ms,
-                  bytes_bound_ms(2 * x.numel()), "bytes", l_ms)
+        with torch.no_grad():
+            k_ms = median_ms(lambda: ops.relu_instancenorm(x16))
+            p_ms = median_ms(lambda: ops.relu_instancenorm_plain(x16))
+            l_ms = median_ms(lambda: F.instance_norm(F.relu(ncdhw)))
+            k_dev = profiled_device_ms(lambda: ops.relu_instancenorm(x16))
+            l_dev = profiled_device_ms(lambda: F.instance_norm(F.relu(ncdhw)))
+        bound = bytes_bound_ms(2 * x.numel())
+        log(f"  {name} {shape} x{calls}: f32 max_abs {err.max().item():.3e} (bound "
+            f"{K3_ATOL} + {K3_RTOL} rel); bf16 max_abs {e16.max().item():.3e} (bound 2 bf16 "
+            f"ulps + the f32 bound); repeatable, also on two streams: {same}; bf16 call "
+            f"kernel {k_ms:.4f} plain {p_ms:.4f} library {l_ms:.4f} ms; device (profiler, 20 "
+            f"calls) kernel {k_dev:.4f} library {l_dev:.4f} bound {bound:.4f} ms, "
+            f"{bound / k_dev:.1%} of the bound")
+        tally.add(name, calls, e16.max().item(), k_ms, p_ms, bound, "bytes", l_ms)
+        tally.add_device(name, calls, k_dev, l_dev, bound)
+        if not backward:
+            continue
+
+        name = "relu_instancenorm_bwd"
+        g = randn(shape, gen)
+        g16 = g.bfloat16()
+        _, mean, rstd = t_in._launch(x, 1e-5)
+        got = ops.relu_instancenorm_bwd(x, g, mean, rstd)
+        want = ops.relu_instancenorm_backward_plain(x, g)
+        err = (got - want).abs()
+        tally.check((err <= K3_ATOL + K3_RTOL * want.abs()).all(),
+                    f"{name} {shape} f32 {err.max().item():.3e}")
+        leaf = x16.clone().requires_grad_()
+        out16 = ops.relu_instancenorm(leaf)
+        d16 = torch.autograd.grad(out16, leaf, g16, retain_graph=True)[0]
+        ref = ops.relu_instancenorm_backward_plain(x16.float(), g16.float())
+        e16 = (d16.float() - ref).abs()
+        tally.check((e16 <= 2 * bf16_ulp(ref) + K3_ATOL + K3_RTOL * ref.abs()).all(),
+                    f"{name} {shape} bf16")
+        _, mean16, rstd16 = t_in._launch(x16, 1e-5)
+        direct = ops.relu_instancenorm_bwd(x16, g16, mean16, rstd16)
+        same = (torch.equal(direct, d16)
+                and torch.equal(ops.relu_instancenorm_bwd(x16, g16, mean16, rstd16), d16)
+                and k3_streams(lambda: ops.relu_instancenorm_bwd(x16, g16, mean16, rstd16),
+                               d16))
+        tally.check(same, f"{name} {shape}: runs differ, or autograd and the direct call")
+        del ref, got, want
+        k_ms = median_ms(lambda: torch.autograd.grad(out16, leaf, g16, retain_graph=True))
+        p_ms = median_ms(lambda: ops.relu_instancenorm_backward_plain(x16, g16))
+        k_dev = profiled_device_ms(lambda: ops.relu_instancenorm_bwd(x16, g16, mean16, rstd16))
+        lib_leaf = ncdhw.detach().requires_grad_()
+        lib_out = F.instance_norm(F.relu(lib_leaf))
+        g_ncdhw = g16.permute(0, 4, 1, 2, 3).contiguous()
+        lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaf, g_ncdhw,  # noqa: E731
+                                              retain_graph=True)
+        l_ms = median_ms(lib_bwd)
+        l_dev = profiled_device_ms(lib_bwd)
+        del out16, lib_out
+        bound = bytes_bound_ms(3 * x.numel())
+        log(f"  {name} {shape} x{calls}: f32 max_abs {err.max().item():.3e} (bound "
+            f"{K3_ATOL} + {K3_RTOL} rel); bf16 max_abs {e16.max().item():.3e} (bound 2 bf16 "
+            f"ulps + the f32 bound); through autograd equal to the direct call, repeatable, "
+            f"also on two streams: {same}; bf16 call kernel (autograd) {k_ms:.4f} plain "
+            f"{p_ms:.4f} library (autograd) {l_ms:.4f} ms; device (profiler, 20 calls) "
+            f"kernel {k_dev:.4f} library {l_dev:.4f} bound {bound:.4f} ms, "
+            f"{bound / k_dev:.1%} of the bound")
+        tally.add(name, calls, e16.max().item(), k_ms, p_ms, bound, "bytes", l_ms)
+        tally.add_device(name, calls, k_dev, l_dev, bound)
+    torch.cuda.empty_cache()
 
 
 def unpack(qkv):
@@ -1030,7 +1124,7 @@ def phase_kernels(ops):
     fwd = Tally()
     check_correlation(ops, fwd, EVAL_B, gen, backward=False)
     check_attention_forward(ops, fwd, EVAL_B, gen)
-    check_instancenorm(ops, fwd, EVAL_B, gen)
+    check_instancenorm(ops, fwd, EVAL_B, gen, backward=False)
     check_fused_convs(ops, fwd, EVAL_B, gen4, backward=False)
     fwd.report(f"B={EVAL_B} forward")
     torch.cuda.empty_cache()
@@ -1045,7 +1139,7 @@ def phase_kernels(ops):
     # inputs from a generator of its own, as K4's: K3 sees what it saw before
     check_attention_strided(ops, step, TRAIN_B,
                             torch.Generator(device="cuda").manual_seed(2))
-    check_instancenorm(ops, step, TRAIN_B, gen)
+    check_instancenorm(ops, step, TRAIN_B, gen, backward=True)
     log(f" fused bottleneck convolutions at the encoders' shapes (B={TRAIN_B}), "
         f"calls per step over the three encoders:")
     check_fused_convs(ops, step, TRAIN_B, gen4, backward=True)
@@ -1128,6 +1222,7 @@ def phase_eval_slice(ops, tmp, fused=False):
     if not (per_forward["correlation_fusion"] >= 1
             and per_forward["fused_attention"] >= 2
             and per_forward["relu_instancenorm"] == 27
+            and per_forward["relu_instancenorm_bwd"] == 0
             and per_forward["correlation_fusion_bwd"] == 0
             and per_forward["fused_attention_bwd"] == 0
             and all(launches[k] == v for k, v in k4_counts(forwards, 0, fused).items())):
@@ -1167,13 +1262,14 @@ def phase_train_slice(ops, tmp, fused=False):
     evals = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
     want = {"correlation_fusion": steps + evals, "correlation_fusion_bwd": steps,
             "fused_attention": 4 * (steps + evals), "fused_attention_bwd": 4 * steps,
-            "relu_instancenorm": 27 * (steps + evals),
+            "relu_instancenorm": 27 * (steps + evals), "relu_instancenorm_bwd": 27 * steps,
             **k4_counts(steps + evals, steps, fused)}
     log(f"  {steps} training steps, {evals} evaluation batches in {wall:.2f} s; "
         f"launches {launches}")
     log(f"  per training step: K1f 1, K1b {launches['correlation_fusion_bwd'] / steps:g}, "
-        f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 27 "
-        f"(forward-only batches launch K1f 1, K2f 4, K3 27 each); K4a "
+        f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 27, K3b "
+        f"{launches['relu_instancenorm_bwd'] / steps:g} (forward-only batches launch "
+        f"K1f 1, K2f 4, K3 27 each); K4a "
         f"{launches['pointwise_conv_stats'] / (steps + evals):g} and K4c "
         f"{launches['conv3x3_fma_relu_stats'] / (steps + evals):g} per forward, K4b "
         f"{launches['pointwise_conv_stats_bwd'] / steps:g} and K4d "

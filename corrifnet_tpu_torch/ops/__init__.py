@@ -1,8 +1,9 @@
 """The port's kernels, each beside its plain PyTorch version.
 
 K1f/K1b ``correlation_fusion`` and its backward (Triton), K2f/K2b
-``fused_attention`` and its backward (CUDA C++), K3 ``relu_instancenorm``
-(Triton; its backward is the plain formula, as in the JAX package), K4a/K4b
+``fused_attention`` and its backward (CUDA C++), K3/K3b ``relu_instancenorm``
+and its backward (CUDA C++; K3b stands for XLA's fusion of the JAX
+package's backward, which has no Pallas kernel), K4a/K4b
 ``pointwise_conv_stats`` and K4c/K4d ``conv3x3_fma_relu_stats`` with their
 backwards (CUDA C++; the fused bottleneck convolutions, run by
 ``pallas_fused_blocks``). Each
@@ -38,7 +39,9 @@ from corrifnet_tpu_torch.ops.fusedconv import (
 from corrifnet_tpu_torch.ops.instancenorm import (
     relu_instancenorm,
     relu_instancenorm_backward_plain,
+    relu_instancenorm_bwd,
     relu_instancenorm_plain,
+    relu_instancenorm_stats_plain,
 )
 
 __all__ = [
@@ -63,7 +66,9 @@ __all__ = [
     "pointwise_conv_stats_plain",
     "relu_instancenorm",
     "relu_instancenorm_backward_plain",
+    "relu_instancenorm_bwd",
     "relu_instancenorm_plain",
+    "relu_instancenorm_stats_plain",
 ]
 
 # The kernel wrappers on the training path, by kernel name; the last four
@@ -74,6 +79,7 @@ KERNELS = {
     "fused_attention": fused_attention,
     "fused_attention_bwd": fused_attention_bwd,
     "relu_instancenorm": relu_instancenorm,
+    "relu_instancenorm_bwd": relu_instancenorm_bwd,
     "pointwise_conv_stats": pointwise_conv_stats,
     "pointwise_conv_stats_bwd": pointwise_conv_stats_bwd,
     "conv3x3_fma_relu_stats": conv3x3_fma_relu_stats,

@@ -12,8 +12,9 @@ encoder bottlenecks through kernels K4a-K4d, each a kind of its own below):
    of ``--iters`` steps after warm-up, patches/s, peak memory allocated;
 2. a torch.profiler trace of a few steps: the device's busy share of the
    profiled wall time (union of kernel intervals over the host-clock
-   window), device time by kind of kernel and by kernel name, and the
-   launches of the port's own kernels per step.
+   window), device time by kind of kernel (the kernels under K3's autograd
+   node and the channels-last copies before K3 each a row of their own)
+   and by kernel name, and the launches of the port's own kernels per step.
 
 Writes ``profile.txt`` and ``trace.json`` under ``--out``. Fails without a GPU.
 """
@@ -32,7 +33,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from profile_torch_eval import busy_share, kind_of  # noqa: E402
+from profile_torch_eval import (busy_share, device_time_by_kind,  # noqa: E402
+                                kind_of, scoped_layout_copies)
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
@@ -96,7 +98,7 @@ def main(argv=None):
         wrapper.launches = 0
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with scoped_layout_copies(), torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(args.profile_steps):
             step(x, masks, valid, 1e-4)
@@ -113,10 +115,7 @@ def main(argv=None):
                  f"{total / 1e3 / n:.3f} ms of device time per step")
     lines.append("the port's kernels, launches per step: " + ", ".join(
         f"{name} {w.launches / n:g}" for name, w in ops.KERNELS.items()))
-    by_kind = {}
-    for name, (count, t) in by_name.items():
-        c0, t0 = by_kind.get(kind_of(name), (0, 0.0))
-        by_kind[kind_of(name)] = (c0 + count, t0 + t)
+    by_kind = device_time_by_kind(trace)
     lines.append("device time by kind (ms per step, share, launches per step):")
     for kind, (count, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {t / 1e3 / n:9.3f} ms {100 * t / total:5.1f}%  x{count // n:<5d} {kind}")

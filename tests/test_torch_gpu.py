@@ -74,11 +74,19 @@ def test_attention_kernel(cuda, shape):
            bf16_bound=2e-2)
 
 
-@pytest.mark.parametrize("shape", [
+# one shape per regime of ops.instancenorm.plan, and C = 20 (masked loads):
+# one block a sample (no barrier); a grid barrier with every row on chip;
+# samples in rounds; rows read again (the 128^3 volume); more samples than SMs
+_K3_SHAPES = [
     (1, 1, 1, 1, 8), (2, 3, 5, 7, 20), (2, 8, 8, 8, 192), (2, 3, 56, 56, 24),
-    (1, 64, 64, 64, 16), (1, 128, 128, 128, 8),
-])
+    (4, 64, 64, 64, 16), (1, 128, 128, 128, 8), (300, 4, 4, 4, 64),
+]
+
+
+@pytest.mark.parametrize("shape", _K3_SHAPES)
 def test_relu_instancenorm_kernel(cuda, shape):
+    """K3 in f32 (1e-5 + 1e-4 rel) and bf16 (2 bf16 ulps of the plain
+    version in f32 on the same inputs, plus the f32 bound)."""
     args = [_randn(shape, cuda, shift=0.2)]
     _check(ops.relu_instancenorm, ops.relu_instancenorm_plain, args, (), 1e-5, 1e-4)
 
@@ -307,6 +315,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.correlation_fusion(x, x, x)  # not (3, B, N, C)
     with pytest.raises(ValueError):
         ops.relu_instancenorm(x.half())
+    with pytest.raises(ValueError):
+        stats = torch.zeros((1, 64), device="cuda")
+        ops.relu_instancenorm_bwd(x.half(), x.half(), stats, stats)
 
 
 # ---------------------------------------------------------------- backward
@@ -507,6 +518,15 @@ def test_backward_wrappers_never_take_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(t_corr, "correlation_fusion_backward_plain", boom)
     monkeypatch.setattr(t_attn, "attention_plain", boom)
     monkeypatch.setattr(t_attn, "philox_keep_mask", boom)
+    from corrifnet_tpu_torch.ops import instancenorm as t_in
+
+    for name in ("relu_instancenorm_plain", "relu_instancenorm_backward_plain",
+                 "relu_instancenorm_stats_plain"):
+        monkeypatch.setattr(t_in, name, boom)
+    for dtype in (torch.float32, torch.bfloat16):
+        z = _randn((2, 4, 4, 4, 24), cuda, shift=0.2).to(dtype).requires_grad_()
+        ops.relu_instancenorm(z).backward(torch.ones_like(z))
+        assert bool(torch.isfinite(z.grad).all())
     x = [_randn((3, 1, 64, 64), cuda).requires_grad_() for _ in range(3)]
     ops.correlation_fusion(*x).sum().backward()
     y = [_randn((1, 1, 64, 64), cuda).requires_grad_() for _ in range(3)]
@@ -520,17 +540,54 @@ def test_backward_wrappers_never_take_the_plain_version(cuda, monkeypatch):
         ops.fused_attention(*y, 0.125, 0.1)  # dropout without a Philox key
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 20), (1, 16, 16, 16, 64)])
+@pytest.mark.parametrize("shape", _K3_SHAPES)
 def test_relu_instancenorm_gradient(cuda, shape):
-    """K3 under autograd: kernel forward, plain-formula backward, against
-    autograd through the plain version (f32, 1e-5 + 1e-4 rel)."""
+    """K3 and K3b under autograd, one launch each, against autograd through
+    the plain version: f32 1e-5 + 1e-4 rel; bf16 within 2 bf16 ulps of the
+    plain backward run in f32 on the same inputs, plus the f32 bound."""
     x = _randn(shape, cuda, shift=0.2)
     g = _randn(shape, cuda)
+    before = ops.relu_instancenorm.launches, ops.relu_instancenorm_bwd.launches
     a = x.clone().requires_grad_()
     ops.relu_instancenorm(a).backward(g)
+    torch.cuda.synchronize()
+    assert (ops.relu_instancenorm.launches, ops.relu_instancenorm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     b = x.clone().requires_grad_()
     ops.relu_instancenorm_plain(b).backward(g)
     assert bool(((a.grad - b.grad).abs() <= 1e-5 + 1e-4 * b.grad.abs()).all())
+
+    x16, g16 = x.bfloat16(), g.bfloat16()
+    a16 = x16.clone().requires_grad_()
+    ops.relu_instancenorm(a16).backward(g16)
+    ref = ops.relu_instancenorm_backward_plain(x16.float(), g16.float())
+    bound = 2 * _bf16_ulp(ref) + 1e-5 + 1e-4 * ref.abs()
+    assert a16.grad.dtype == torch.bfloat16
+    assert bool(((a16.grad.float() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 8, 192), (4, 64, 64, 64, 16)])
+def test_relu_instancenorm_on_two_streams(cuda, shape):
+    """16 calls of K3 and of K3b queued on each of two streams at once: every
+    result the bits of a lone call (the grid barrier's two words are one
+    pair a stream, 0 again after each launch)."""
+    from corrifnet_tpu_torch.ops import instancenorm as t_in
+
+    x = _randn(shape, cuda, shift=0.2).bfloat16()
+    g = _randn(shape, cuda).bfloat16()
+    y, mean, rstd = t_in._launch(x, 1e-5)
+    dx = ops.relu_instancenorm_bwd(x, g, mean, rstd)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(16):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append((t_in._launch(x, 1e-5)[0],
+                             ops.relu_instancenorm_bwd(x, g, mean, rstd)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, y) and torch.equal(b, dx) for a, b in outs)
 
 
 @pytest.mark.parametrize("src,dst", [((3, 14, 14), 16), ((3, 28, 28), 32),
@@ -570,5 +627,20 @@ def test_model_forward_runs_every_kernel(cuda, fused):
     assert {n: w.launches for n, w in ops.KERNELS.items()} == {
         "correlation_fusion": 1, "correlation_fusion_bwd": 0,
         "fused_attention": 4, "fused_attention_bwd": 0, "relu_instancenorm": 27,
+        "relu_instancenorm_bwd": 0,
         "pointwise_conv_stats": 108 * fused, "pointwise_conv_stats_bwd": 0,
         "conv3x3_fma_relu_stats": 39 * fused, "conv3x3_fma_relu_stats_bwd": 0}
+    # a training forward and backward: every kernel's backward too
+    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda",
+                         pallas_fused_blocks=fused, transformer_dropout=0.0)
+    model.train()
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    model(torch.randn(2, 3, 3, 64, 64, device="cuda")).float().mean().backward()
+    torch.cuda.synchronize()
+    assert {n: w.launches for n, w in ops.KERNELS.items()} == {
+        "correlation_fusion": 1, "correlation_fusion_bwd": 1,
+        "fused_attention": 4, "fused_attention_bwd": 4, "relu_instancenorm": 27,
+        "relu_instancenorm_bwd": 27,
+        "pointwise_conv_stats": 108 * fused, "pointwise_conv_stats_bwd": 108 * fused,
+        "conv3x3_fma_relu_stats": 39 * fused, "conv3x3_fma_relu_stats_bwd": 39 * fused}

@@ -293,26 +293,6 @@ def test_relu_instancenorm_plain_matches_pallas_interpret(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=IN_ATOL, rtol=0)
 
 
-# (B, N, C) of the 27 ReLU+IN epilogues of one B=8 forward, by distinct shape
-_SLICE_IN_SHAPES = [
-    (8, 512, 192), (8, 588, 192), (8, 2352, 96), (8, 9408, 48), (8, 9408, 24),
-    (8, 16 ** 3, 128), (8, 16 ** 3, 64), (8, 32 ** 3, 32), (8, 64 ** 3, 16),
-    (8, 128 ** 3, 8),
-]
-
-
-@pytest.mark.parametrize("b,n,c", _SLICE_IN_SHAPES)
-def test_relu_instancenorm_launch_plan_covers_volume(b, n, c):
-    """The split reduction's chunks tile every row exactly once and each
-    tile holds whole channel rows."""
-    block_n, block_c, rows_per_chunk, n_chunks = t_in._launch_plan(b, n, c)
-    assert block_c >= c and block_c & (block_c - 1) == 0
-    assert block_n & (block_n - 1) == 0 and block_n * block_c <= t_in._TILE_ELEMS
-    assert rows_per_chunk % block_n == 0
-    assert (n_chunks - 1) * rows_per_chunk < n <= n_chunks * rows_per_chunk
-    assert b * n_chunks <= t_in._STAT_PROGRAMS
-
-
 # ---------------------------------------------------------------- K4
 
 # the JAX suite's own bounds (tests/test_fusedconv.py): f32 sums in another order
@@ -588,6 +568,9 @@ _WRAPPER_CASES = {
                         lambda: [_cuda_looking((1, 1, 64, 64))] * 3 + [0.125]),
     "relu_instancenorm": (t_in, "relu_instancenorm_plain",
                           lambda: [_cuda_looking((1, 2, 2, 2, 8))]),
+    "relu_instancenorm_bwd": (t_in, "relu_instancenorm_backward_plain",
+                              lambda: [_cuda_looking((1, 2, 2, 2, 8))] * 2
+                              + [_cuda_looking((1, 8))] * 2),
     "pointwise_conv_stats": (t_fc, "pointwise_conv_stats_plain",
                              lambda: [_cuda_looking((4, 8)), _cuda_looking((8, 8))]),
     "conv3x3_fma_relu_stats": (
@@ -631,6 +614,9 @@ def test_wrapper_on_cpu_counts_no_launch(name):
         wrapper(*(torch.ones(1, 1, 64, 64) for _ in range(3)), 0.125)
     elif name == "relu_instancenorm":
         wrapper(torch.ones(1, 2, 2, 2, 8))
+    elif name == "relu_instancenorm_bwd":
+        wrapper(torch.ones(1, 2, 2, 2, 8), torch.ones(1, 2, 2, 2, 8), torch.ones(1, 8),
+                torch.ones(1, 8))
     else:
         conv = name.startswith("conv")
         x = torch.ones((1, 2, 2, 8) if conv else (4, 8))
