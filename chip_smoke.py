@@ -54,13 +54,16 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the share of the bound, and the sums over one forward or step;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
-   and read just after (K1 >= 1, K2 >= 2, K3 = 27, K3b 0 launches per forward);
-   then over 48 images, timed;
+   and read just after (K1 >= 1, K2 >= 2, K3 = 27, K3b 0 launches per
+   forward: at B=8 the decoder's chain is the fused standard one); then over
+   48 images, timed;
 5. the training slice: ``run.main.main`` at full width (MMVit4, 224x224,
    B=4, bf16, dropout 0.1) for one epoch of 8 steps over 40 synthetic
    patches, with validation by checkpoint and the test; counters reset just
    before and read just after: per training step K1f 1, K1b 1, K2f 4, K2b 4
-   (its dq and dk/dv passes count as one launch), K3 27, K3b 27; the log
+   (its dq and dk/dv passes count as one launch), K3 15, K3b 15 (at B=4
+   the decoder is lean, by the JAX package's batch rule: K3 ends the 15 RFM
+   blocks, the 12 chain stages end in ``relu_in_stats``); the log
    files, both checkpoints and the segplot PNGs exist (the curve PNGs too
    where matplotlib is installed); losses in the double-sigmoid band;
    step seconds, patches/s and peak memory are printed;
@@ -70,7 +73,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 7. one training step (B=1, f32, TF32 off, dropout 0) on the card against
    the CPU: the loss within 1e-5, and every gradient tensor's relative L2
    distance within twice the worst that the CPU shows against itself
-   when the input changes by one part in 10^6 (measured in the run);
+   when the input changes by one part in 10^6 (measured in the run); with
+   the lean decoder (the batch rule at B=1), then with
+   ``decoder_lean=False`` (the fused standard chain);
 8. the fused configuration (``"pallas_fused_blocks": true``): phases 4 and 5
    again through the same entry points, at the same sizes: per forward K4a
    108 and K4c 39 launches, per training step K4b 108 and K4d 39 more, K1-K3
@@ -79,7 +84,13 @@ Phases, each of which raises on failure (exit code 1, no result lines):
 9. fused, card against CPU in f32: one train step of a full-width
    ``Bottleneck3D(pallas_fused=True)`` (output, running statistics,
    gradients; 1e-4 of each tensor's largest entry) for the three kinds of
-   block, and the whole model of phase 6 with the flag on (1e-4).
+   block, and the whole model of phase 6 with the flag on (1e-4);
+10. the decoder (``phase_decoder``): at the cascade's real sizes in f32,
+   depth-fused against the plain chain, lean against standard, the fused
+   lean decoder on the card against the CPU (bounds in its docstring); then
+   the device time and peak memory of the decoder's forward and backward at
+   B=4 in bf16, for the plain chain and the fused chain with lean off and
+   on.
 
 Then one JSON line of kernel results, the card line again, and last the
 device line ``{"ok": true, "device": {...}}``. Imports no jax.
@@ -153,14 +164,19 @@ def k2_shapes(b):
     return [((b, 8, 512, 64), 3), ((b, 8, 2048, 64), 1)]
 
 
-def k3_shapes(b):
-    """(shape, launches per forward) of the 27 decoder epilogues."""
-    return [
-        ((b, 8, 8, 8, 192), 3), ((b, 3, 14, 14, 192), 3), ((b, 3, 28, 28, 96), 3),
-        ((b, 3, 56, 56, 48), 3), ((b, 3, 56, 56, 24), 3), ((b, 16, 16, 16, 128), 1),
-        ((b, 16, 16, 16, 64), 2), ((b, 32, 32, 32, 32), 3), ((b, 64, 64, 64, 16), 3),
-        ((b, 128, 128, 128, 8), 3),
-    ]
+def k3_shapes(b, chain=True):
+    """(shape, launches per forward) of the decoder epilogues K3 ends: the 15
+    RFM blocks', and with ``chain`` the 12 chain stages' (where the decoder
+    is not lean: batch > 4 by default)."""
+    rfm = [((b, 8, 8, 8, 192), 3), ((b, 3, 14, 14, 192), 3), ((b, 3, 28, 28, 96), 3),
+           ((b, 3, 56, 56, 48), 3), ((b, 3, 56, 56, 24), 3)]
+    return rfm + ([((b, 16, 16, 16, 128), 1), ((b, 16, 16, 16, 64), 2),
+                   ((b, 32, 32, 32, 32), 3), ((b, 64, 64, 64, 16), 3),
+                   ((b, 128, 128, 128, 8), 3)] if chain else [])
+
+
+# K3 calls per forward: the RFM blocks', and the chain's where lean is off
+K3_LEAN, K3_STANDARD = 15, 27
 
 
 ENCODERS = 3
@@ -222,6 +238,8 @@ WHOLE_MODEL_ATOL = 1e-4
 # relative L2 distance as a multiple of what the CPU shows against itself
 # under a 1e-6 change of the input (see phase_train_step)
 STEP_LOSS_ATOL, STEP_WITNESS_FACTOR = 1e-5, 2.0
+# lean against standard decoder gradients, of each tensor's largest entry
+LEAN_GRAD_RTOL = 2e-5
 SCALE = 0.125
 RATE = 0.1
 PHILOX = (20260, 17)
@@ -536,7 +554,8 @@ def check_instancenorm(ops, tally, b, gen, backward):
     device times from profiler traces."""
     from corrifnet_tpu_torch.ops import instancenorm as t_in
 
-    for shape, calls in k3_shapes(b):
+    # the training step at B=4 runs the lean decoder: K3 ends the RFMs only
+    for shape, calls in k3_shapes(b, chain=not backward):
         x = randn(shape, gen, 0.2)
         x16 = x.bfloat16()
         name = "relu_instancenorm"
@@ -1221,7 +1240,7 @@ def phase_eval_slice(ops, tmp, fused=False):
     per_forward = {n: c / forwards for n, c in launches.items()}
     if not (per_forward["correlation_fusion"] >= 1
             and per_forward["fused_attention"] >= 2
-            and per_forward["relu_instancenorm"] == 27
+            and per_forward["relu_instancenorm"] == K3_STANDARD
             and per_forward["relu_instancenorm_bwd"] == 0
             and per_forward["correlation_fusion_bwd"] == 0
             and per_forward["fused_attention_bwd"] == 0
@@ -1262,14 +1281,16 @@ def phase_train_slice(ops, tmp, fused=False):
     evals = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
     want = {"correlation_fusion": steps + evals, "correlation_fusion_bwd": steps,
             "fused_attention": 4 * (steps + evals), "fused_attention_bwd": 4 * steps,
-            "relu_instancenorm": 27 * (steps + evals), "relu_instancenorm_bwd": 27 * steps,
+            # lean at B <= 4, the evaluation batches of the run included
+            "relu_instancenorm": K3_LEAN * (steps + evals),
+            "relu_instancenorm_bwd": K3_LEAN * steps,
             **k4_counts(steps + evals, steps, fused)}
     log(f"  {steps} training steps, {evals} evaluation batches in {wall:.2f} s; "
         f"launches {launches}")
     log(f"  per training step: K1f 1, K1b {launches['correlation_fusion_bwd'] / steps:g}, "
-        f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 27, K3b "
+        f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 {K3_LEAN}, K3b "
         f"{launches['relu_instancenorm_bwd'] / steps:g} (forward-only batches launch "
-        f"K1f 1, K2f 4, K3 27 each); K4a "
+        f"K1f 1, K2f 4, K3 {K3_LEAN} each); K4a "
         f"{launches['pointwise_conv_stats'] / (steps + evals):g} and K4c "
         f"{launches['conv3x3_fma_relu_stats'] / (steps + evals):g} per forward, K4b "
         f"{launches['pointwise_conv_stats_bwd'] / steps:g} and K4d "
@@ -1406,11 +1427,12 @@ def gradient_agreement(got, want):
     return (diff / norm) ** 0.5, statistics.median(v for v, _ in l2), max(l2)
 
 
-def phase_train_step():
+def phase_train_step(decoder_lean=None):
     """One f32 training step at B=1 without dropout, BatchNorm on batch
     statistics: the loss and every gradient tensor on the card (kernels,
     forward and backward) against the CPU (plain versions), same weights
-    and input.
+    and input; the decoder lean by the batch rule (``decoder_lean=None``) or
+    its fused standard chain (``False``).
 
     At random initialization the gradient of this network is badly
     conditioned: some forty normalization layers in sequence amplify f32
@@ -1434,7 +1456,7 @@ def phase_train_step():
     masks = (torch.rand((1, 3, 1, 224, 224), generator=gen) > 0.5).float()
     valid = torch.ones(1)
     cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
-                       transformer_dropout=0.0)
+                       transformer_dropout=0.0, decoder_lean=decoder_lean)
     calibrate_batchnorm(cpu, x)
     gpu = copy.deepcopy(cpu).to("cuda")
     witness = copy.deepcopy(cpu)
@@ -1457,6 +1479,186 @@ def phase_train_step():
     if not (abs(loss_gpu - loss_cpu) <= STEP_LOSS_ATOL and whole <= bound_whole
             and worst[0] <= bound_tensor):
         raise AssertionError("training step GPU vs CPU outside its bounds")
+
+
+def decoder_inputs(b, dtype, device, seed=0):
+    """The decoder's inputs at the cascade's real sizes: the skips x1..x4 and
+    the bottleneck x5, contiguous NCDHW as the model hands them over."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(b, 24, 3, 56, 56), (b, 48, 3, 56, 56), (b, 96, 3, 28, 28),
+              (b, 192, 3, 14, 14), (b, 192, 8, 8, 8)]
+    return [torch.randn(s, generator=gen).to(device=device, dtype=dtype) for s in shapes]
+
+
+def seeded_decoder(**kwargs):
+    from corrifnet_tpu_torch.models.decoder import DecoderFuse
+
+    dec = DecoderFuse(**kwargs)
+    gen = torch.Generator().manual_seed(0)
+    for m in dec.modules():
+        if m is not dec and hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    return dec
+
+
+def decoder_step(dec, xs, scale=1.0):
+    """Output and the gradients of mean(out^2) w.r.t. the parameters and the
+    inputs, by name."""
+    leaves = [(x * scale).detach().requires_grad_() for x in xs]
+    out = dec(*leaves)
+    names = [n for n, _ in dec.named_parameters()] + [f"x{i + 1}" for i in range(5)]
+    grads = torch.autograd.grad((out.float() ** 2).mean(),
+                                list(dec.parameters()) + leaves)
+    return out.detach(), dict(zip(names, (g.detach() for g in grads)))
+
+
+def xla_epilogue(y):
+    """K3's function with single-pass statistics on channels-last ``y``: the
+    standard stage's epilogue as the JAX package composes it off the TPU,
+    the same statistics as the lean stages' ``relu_in_stats``."""
+    from corrifnet_tpu_torch.nn.leandec import relu_in_stats
+
+    ys, a, b = relu_in_stats(y.permute(0, 4, 1, 2, 3))
+    return (ys * a + b).permute(0, 2, 3, 4, 1)
+
+
+def f64_decoder_gradients(dec, xs):
+    """``decoder_step``'s gradients of ``dec`` in float64 on the card, as CPU
+    tensors: K3's call site given its plain version and every ``.float()``
+    made ``.double()`` while it runs."""
+    from corrifnet_tpu_torch import ops
+    from corrifnet_tpu_torch.nn import conv as tconv
+
+    to_float, k3 = torch.Tensor.float, tconv.relu_instancenorm
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    tconv.relu_instancenorm = ops.relu_instancenorm_plain
+    try:
+        _, grads = decoder_step(dec.double(), [x.double() for x in xs])
+    finally:
+        torch.Tensor.float, tconv.relu_instancenorm = to_float, k3
+    return {n: g.cpu() for n, g in grads.items()}
+
+
+def phase_decoder():
+    """The default decoder at the cascade's real sizes (skips (1, 24/48/96/192,
+    3, 56/56/28/14, 56/56/28/14), bottleneck (1, 192, 8, 8, 8)), f32 with
+    TF32 off, the gradients of mean(out^2) w.r.t. every parameter and input:
+
+    * depth-fused against the plain resize-then-conv chain, both standard:
+      the output within atol 1e-4 + rtol 1e-3 (tests/test_depthfuse.py:130),
+      each gradient tensor's relative L2 distance within twice the worst the
+      plain chain shows against itself under a 1e-6 change of its input;
+    * lean against the standard fused chain, both with the single-pass
+      epilogue (K3 computes its variance in two passes, the lean stages in
+      one, as the JAX package does): every parameter gradient within 2e-5 of
+      its largest entry (tests/test_lean_decoder.py:67);
+    * the fused lean decoder on the card against the CPU: the output within
+      1e-4; the gradients against the same decoder in float64 on the card,
+      each tensor of the card and the whole gradient no further than twice
+      the larger of the CPU's distance and the card's witness above.
+
+    Then, in bf16 at B=4: the device time (profiler) and the peak memory of
+    one forward and backward for the plain chain, the fused standard chain
+    and the fused lean decoder."""
+    from corrifnet_tpu_torch.nn import conv as tconv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    xs = decoder_inputs(1, torch.float32, "cuda")
+    plain = seeded_decoder(fuse_depth=False).cuda()
+    state = plain.state_dict()
+
+    def built(**kwargs):
+        dec = seeded_decoder(**kwargs)
+        dec.load_state_dict(state)
+        return dec.cuda()
+
+    out_p, g_p = decoder_step(plain, xs)
+    _, g_w = decoder_step(plain, xs, 1 + 1e-6)
+    out_f, g_f = decoder_step(built(lean=False), xs)
+    close = (out_f - out_p).abs() <= 1e-4 + 1e-3 * out_p.abs()
+    whole, med, worst = gradient_agreement(g_f, g_p)
+    w_whole, _, w_worst = gradient_agreement(g_w, g_p)
+    log(f"  fused against plain: max |out diff| {(out_f - out_p).abs().max().item():.3e} "
+        f"(bound 1e-4 + 1e-3 rel: {bool(close.all())}); gradients ||fused - plain|| / "
+        f"||plain||: whole {whole:.3e}, per tensor median {med:.3e}, worst {worst[0]:.3e} "
+        f"at {worst[1]}; witness (plain, input x (1 + 1e-6)) whole {w_whole:.3e}, worst "
+        f"{w_worst[0]:.3e} at {w_worst[1]}")
+    if not (close.all() and whole <= STEP_WITNESS_FACTOR * w_whole
+            and worst[0] <= STEP_WITNESS_FACTOR * w_worst[0]):
+        raise AssertionError("depth-fused decoder against the plain chain outside its bounds")
+    del plain, g_p, g_w, g_f
+
+    standard = tconv.relu_instancenorm
+    tconv.relu_instancenorm = xla_epilogue
+    try:
+        out_s, g_s = decoder_step(built(lean=False), xs)
+        out_l, g_l = decoder_step(built(lean=True), xs)
+    finally:
+        tconv.relu_instancenorm = standard
+    params = [n for n in g_s if not n.startswith("x")]
+    lean_err = {n: rel_max(g_l[n], g_s[n]) for n in params}
+    worst_l = max(lean_err, key=lean_err.get)
+    out_err = (out_l - out_s).abs().max().item()
+    log(f"  lean against standard (single-pass epilogue): max |out diff| {out_err:.3e}; "
+        f"worst parameter gradient max |lean - standard| / max |standard| "
+        f"{lean_err[worst_l]:.3e} at {worst_l} (bound {LEAN_GRAD_RTOL})")
+    if not (out_err <= 1e-6 and lean_err[worst_l] <= LEAN_GRAD_RTOL):
+        raise AssertionError("lean decoder against the standard chain outside its bounds")
+    del g_s, g_l
+
+    cpu = seeded_decoder(lean=True)
+    cpu.load_state_dict(state)
+    out_g, g_g = decoder_step(built(lean=True), xs)
+    out_c, g_c = decoder_step(cpu, [x.cpu() for x in xs])
+    g_g = {n: g.cpu() for n, g in g_g.items()}
+    diff = (out_g.cpu() - out_c).abs().max().item()
+    # the yardstick: the same decoder in float64 on the card (plain K3, every
+    # .float() a .double(), cuDNN in f64). Its bias gradients sum millions of
+    # terms that cancel (a conv's bias before InstanceNorm), so the card's
+    # and the CPU's f32 sums differ by percents of them while both stay as
+    # near the true gradient: each tensor of the card, and the whole
+    # gradient, within twice the larger of the CPU's distance to f64 and
+    # the card's witness above (what its gradient moves under a 1e-6 change
+    # of the input: the floor f32 rounding sets on the card)
+    ref = f64_decoder_gradients(built(lean=True), xs)
+    card, med, worst = gradient_agreement(g_g, ref)
+    host, host_med, host_worst = gradient_agreement(g_c, ref)
+    per = {n: (((g_g[n].double() - ref[n]).norm() / ref[n].norm()).item(),
+               ((g_c[n].double() - ref[n]).norm() / ref[n].norm()).item()) for n in ref}
+    over = {n: v for n, v in per.items()
+            if v[0] > STEP_WITNESS_FACTOR * max(v[1], w_whole)}
+    log(f"  fused lean, card against CPU: max |out diff| {diff:.3e} (bound "
+        f"{WHOLE_MODEL_ATOL}); ||g - g_f64|| / ||g_f64||: card whole {card:.3e}, median "
+        f"{med:.3e}, worst {worst[0]:.3e} at {worst[1]}; CPU whole {host:.3e}, median "
+        f"{host_med:.3e}, worst {host_worst[0]:.3e} at {host_worst[1]}; the card's "
+        f"witness {w_whole:.3e}; tensors over {STEP_WITNESS_FACTOR} times the larger: "
+        f"{over}")
+    if not (out_g.shape == (1, 3, 1, 224, 224) and bool(torch.isfinite(out_g).all())
+            and diff <= WHOLE_MODEL_ATOL and card <= STEP_WITNESS_FACTOR * max(host, w_whole)
+            and not over):
+        raise AssertionError("fused lean decoder, card against CPU, outside its bounds")
+    del cpu, g_g, g_c, ref
+    torch.cuda.empty_cache()
+
+    xs = decoder_inputs(TRAIN_B, torch.bfloat16, "cuda")
+    for label, kwargs in (("plain chain (fuse_depth off; lean needs it)",
+                           {"fuse_depth": False}),
+                          ("fused, lean off", {"lean": False}),
+                          ("fused, lean on", {"lean": True})):
+        dec = built(**kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        decoder_step(dec, xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = profiled_device_ms(lambda: decoder_step(dec, xs), launches=5)
+        log(f"  B={TRAIN_B} bf16 forward + backward, {label}: device {ms:.3f} ms "
+            f"(profiler, 5 calls); peak memory {peak} bytes, {peak - held} above the "
+            f"{held} held before")
+        del dec
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1524,13 +1726,21 @@ def main():
 
     log("phase 6: whole model, B=1 f32, GPU kernels vs CPU plain versions")
     phase_whole_model()
-    log("phase 7: one training step, B=1 f32, GPU kernels vs CPU plain versions")
+    log("phase 7: one training step, B=1 f32, GPU kernels vs CPU plain versions, "
+        "the decoder lean by the batch rule")
     phase_train_step()
+    log("phase 7, again with decoder_lean=false: the fused standard chain")
+    phase_train_step(decoder_lean=False)
     log("phase 9: fused, GPU kernels vs CPU plain versions, f32: bottleneck train "
         "steps, then the whole model at B=1")
     phase_fused_block()
     phase_whole_model(fused=True)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("phase 10: the decoder at the cascade's real sizes, fused and lean against "
+        "the plain chain (f32, B=1), card against CPU; device time and peak memory "
+        "of its forward and backward (bf16, B=4)")
+    phase_decoder()
     log(f"chip_smoke took {time.perf_counter() - started:.1f} s")
 
     kernels = []

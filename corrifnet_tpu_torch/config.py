@@ -138,7 +138,6 @@ def load_config(path) -> ExperimentConfig:
 _NOT_HONOURED = {
     "fuse_expand_bn": (lambda v: bool(v), "bn3/down_bn folded into their convs"),
     "depth_mode": (lambda v: v != "full", "the depth-pruned decoder"),
-    "decoder_lean": (lambda v: v is True, "the lean-residual decoder backward"),
     "decoder_chunk": (lambda v: v != 0, "depth-chunked decoder backwards"),
     "decoder_remat": (lambda v: bool(v), "decoder rematerialization"),
     "mesh_shape": (lambda v: v is not None, "SPMD training over a device mesh"),

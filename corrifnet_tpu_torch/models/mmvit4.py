@@ -11,8 +11,9 @@ Counterpart of ``corrifnet_tpu/models/mmvit4.py:117-248``, NCDHW inside:
   5. the multimodal transformer over the 4 token groups (2048 tokens,
      kernel K2), the reinterpreting reshape (B, 2048, 512) -> (B, 8, 8, 8,
      2048) channels-last, and a 1x1 decode conv;
-  6. DecoderFuse (kernel K3 in all 27 conv blocks) to sigmoid probabilities
-     (B, 3, 1, 224, 224).
+  6. DecoderFuse, depth-fused, to sigmoid probabilities (B, 3, 1, 224, 224):
+     kernel K3 in the 15 RFM blocks, and in the 12 chain stages unless the
+     lean backward runs there (``decoder_lean``; None: at batch <= 4).
 
 In training mode (``module.train()``) BatchNorm runs on batch statistics
 and the four transformers drop at ``transformer_dropout`` (0.1, the
@@ -62,7 +63,8 @@ class MMVit4(nn.Module):
 
     def __init__(self, dtype: torch.dtype = torch.float32,
                  transformer_dropout: float = 0.1,
-                 pallas_fused_blocks: bool = False):
+                 pallas_fused_blocks: bool = False,
+                 decoder_lean: "bool | None" = None):
         super().__init__()
         self.compute_dtype = dtype
         dim = TRANSFORMER_DIM
@@ -79,7 +81,7 @@ class MMVit4(nn.Module):
         self.fused6_pos = nn.Parameter(torch.zeros(1, NUM_TOKENS, dim))
         self.multimodal_transformer = Transformer(dim, 1, 8, 512, drop)
         self.multimodal_decode_conv = Conv(dim * 4, BASIC_DIMS * 8 * 3, 1)
-        self.decoder_fuse = DecoderFuse()
+        self.decoder_fuse = DecoderFuse(lean=decoder_lean)
 
     def reset_parameters(self, generator: torch.Generator):
         """Initialize every parameter from ``generator``, in module order:

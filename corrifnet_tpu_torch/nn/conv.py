@@ -7,10 +7,11 @@ compute over f32 parameters). Module and parameter names are the
 reference's, so a ``state_dict`` converts to JAX variables with
 ``corrifnet_tpu.models.torch_import``.
 
-The JAX package's layout devices for the TPU (the block-diagonal
-``modalities`` packing and the ``depth_fuse`` contraction) have identical
-math and are not ported: here three modalities run as three modules and a
-depth resize is a resize followed by the conv.
+``Conv`` takes the JAX module's ``depth_fuse`` argument (the full-depth
+decoder's resize-then-conv pairs contracted into one conv at the coarse
+depth, ``nn/depthfuse.py``). The block-diagonal ``modalities`` packing, a
+TPU layout device with identical math, is not ported: three modalities run
+as three modules.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from corrifnet_tpu_torch.nn.depthfuse import coarse_input, expand_conv
 from corrifnet_tpu_torch.nn.init import fan_in, kaiming_normal_, torch_default_
 from corrifnet_tpu_torch.nn.norm import InstanceNorm
 from corrifnet_tpu_torch.ops import relu_instancenorm
@@ -56,14 +58,51 @@ class Conv(nn.Module):
     def _bias(self, dtype):
         return None if self.bias is None else self.bias.to(dtype)
 
-    def forward(self, x):
-        w = self.weight.to(x.dtype)
-        padding = self.padding
-        if self.padding_mode == "replicate" and any(padding):
-            pd, ph, pw = padding
-            x = F.pad(x, (pw, pw, ph, ph, pd, pd), mode="replicate")
-            padding = 0
-        return F.conv3d(x, w, self._bias(x.dtype), self.stride, padding)
+    def forward(self, x, depth_fuse=None):
+        """``depth_fuse`` (the full-depth decoder's fused path, counterpart
+        of ``Conv.__call__(x, depth_fuse)`` in the JAX package):
+        ``("linear", dst_d)``: x is the depth-COARSE volume, the result is
+        conv3d(depth_linear_resize(x, dst_d)); ``("nearest", dst_d)``: x is a
+        ``(skip, run)`` pair, the result is conv3d(concat(nearest depth
+        resize of skip to dst_d, run)). Same parameters either way."""
+        return self.convolve(self.prepare(x, depth_fuse), depth_fuse)
+
+    def prepare(self, x, depth_fuse=None):
+        """The tensors the convolutions of ``forward(x, depth_fuse)`` read,
+        padded and laid out (the lean decoder rebuilds these in the
+        backward instead of storing them), and the batch size."""
+        if depth_fuse is None:
+            if self.padding_mode == "replicate" and any(self.padding):
+                pd, ph, pw = self.padding
+                x = F.pad(x, (pw, pw, ph, ph, pd, pd), mode="replicate")
+            return (x,), x.shape[0]
+        if (self.weight.shape[2] != 3 or self.padding[0] != 1
+                or self.stride != (1, 1, 1)):
+            raise ValueError("depth fusion needs a stride-1 conv with 3 depth "
+                             f"taps and depth padding 1, not {tuple(self.weight.shape)}")
+        parts = x if depth_fuse[0] == "nearest" else (x,)
+        return (tuple(coarse_input(p, self.padding, self.padding_mode) for p in parts),
+                parts[-1].shape[0])
+
+    def convolve(self, prepared, depth_fuse=None):
+        """``forward`` from what ``prepare`` returned."""
+        parts, batch = prepared
+        dt = parts[0].dtype
+        w, bias = self.weight.to(dt), self._bias(dt)
+        if depth_fuse is None:
+            padding = 0 if self.padding_mode == "replicate" else self.padding
+            return F.conv3d(parts[0], w, bias, self.stride, padding)
+        kind, dst_d = depth_fuse
+        if kind == "linear":
+            return expand_conv(parts, [w], ["linear"], batch, dst_d,
+                               self.padding_mode, self.padding, bias)
+        # the skip block's taps expanded from its coarse rows; the run block,
+        # an ordinary 3^3 conv at the fine depth, as a 2-D conv whose taps
+        # are shift-added by the same product (its table: the identity
+        # resize, JAX's _depth3_shift_add)
+        cs = parts[0].shape[1]
+        return expand_conv(parts, [w[:, :cs], w[:, cs:]], ["nearest", "linear"], batch,
+                           dst_d, self.padding_mode, self.padding, bias)
 
     def pointwise(self, tokens):
         """The 1x1x1 conv applied to channels-last ``(..., in)`` tokens: the
@@ -100,8 +139,8 @@ class GeneralConv3d(nn.Module):
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
                          padding, padding_mode=padding_mode)
 
-    def forward(self, x):
-        y = self.conv(x).permute(0, 2, 3, 4, 1).contiguous()  # channels-last
+    def forward(self, x, depth_fuse=None):
+        y = self.conv(x, depth_fuse).permute(0, 2, 3, 4, 1).contiguous()  # channels-last
         return relu_instancenorm(y).permute(0, 4, 1, 2, 3)
 
 

@@ -88,7 +88,8 @@ def evaluate_run(cfg, weights=None, device="cuda"):
                      data_dirs=cfg.data_dirs)
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
-                         pallas_fused_blocks=cfg.pallas_fused_blocks)
+                         pallas_fused_blocks=cfg.pallas_fused_blocks,
+                         decoder_lean=cfg.decoder_lean)
     if weights is not None:
         model.load_state_dict(load_weights(weights), strict=True)
     bs = max(cfg.mini_batch_size, 8)

@@ -19,7 +19,8 @@ and refused by the CLI when asked for: ``--resume``, ``--train-deadline-s``,
 ``--indices`` and ``transfertype`` warm starts; and the config fields
 ``config.check_supported`` names.
 ``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
-the fused convolution kernels.
+the fused convolution kernels; so is ``decoder_lean`` (None: the lean decoder
+backward at batch <= 4, as the JAX package).
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
     # (F2_MAIN.py:134-157); MMVit4 has none, so its own initialization stands
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
-                         pallas_fused_blocks=cfg.pallas_fused_blocks)
+                         pallas_fused_blocks=cfg.pallas_fused_blocks,
+                         decoder_lean=cfg.decoder_lean)
     state = init_state(model, cfg.optimizer_type)
 
     d = datetime.datetime.now()

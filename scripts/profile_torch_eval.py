@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Time and profile the port's MMVit4 evaluation forward on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10] [--fused] [--out DIR]
+    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10] [--fused]
+        [--lean none|true|false] [--out DIR]
 
 At 224x224, bf16 compute, random weights from seed 0 (``--fused``: with
-``pallas_fused_blocks``, the encoder bottlenecks through kernels K4a and K4c):
+``pallas_fused_blocks``, the encoder bottlenecks through kernels K4a and K4c;
+``--lean``: the config's ``decoder_lean``, none by default, which at batch 8
+is the standard fused chain):
 
 1. images/s of the forward (median of CUDA-event timed iterations after
    warm-up), with the kernels and with every kernel wrapper swapped for
@@ -50,6 +53,9 @@ def _plain_attention_qkv(qkv, scale, rate=0.0, philox=None):
     return ops.attention_plain(*qkv.permute(2, 0, 3, 1, 4).unbind(0), scale)
 
 
+# the values of --lean
+LEAN = {"none": None, "true": True, "false": False}
+
 # where each wrapper is called on the evaluation path
 _CALL_SITES = {
     "relu_instancenorm": ("corrifnet_tpu_torch.nn.conv", ops.relu_instancenorm_plain),
@@ -70,6 +76,7 @@ _KINDS = [
     ("K3b ReLU+InstanceNorm backward", ("relu_in_bwd",)),
     ("replicate padding, forward and backward", ("replication_pad",)),
     ("trilinear up-sampling, forward and backward", ("upsample_trilinear",)),
+    ("bilinear (H/W) up-sampling, forward and backward", ("upsample_bilinear",)),
     ("nearest up-sampling, forward and backward", ("upsample_nearest",)),
     ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc", "nhwc2nchw")),
     ("convolutions (cuDNN, forward, dgrad, wgrad)",
@@ -96,13 +103,28 @@ _K4_COTANGENT = re.compile(r"cotangent_kernel<(?:\(int\))?(\d)")
 
 # host scopes whose kernels get a row of their own, whatever their names: the
 # kernels launched inside K3's autograd node (the plain formula's dozens, or
-# K3b), and the channels-last copy in front of each K3 call (the scope that
-# ``scoped_layout_copies`` opens)
+# K3b), the channels-last copy in front of each K3 call (the scope that
+# ``scoped_layout_copies`` opens), the lean stages' relu_in_stats (forward
+# and backward), the input of a lean stage's conv made in the forward and
+# rebuilt in the backward (fma, H/W resize, padding), and the depth
+# expansion of the fused convs (the scopes ``scoped_decoder`` opens; its
+# backward is the only bmm/baddbmm autograd node of the model)
 K3_COPY_SCOPE = "K3 layout copy"
+LEAN_INPUT_SCOPE = "lean stage input"
+LEAN_REBUILD_SCOPE = "lean stage input rebuilt"
+EXPANSION_SCOPE = "depth expansion"
 _SCOPES = [
     ("K3 backward (every kernel under _ReluInstanceNormBackward)",
      "_ReluInstanceNormBackward"),
     ("K3 layout copies (permute + contiguous before each K3)", K3_COPY_SCOPE),
+    ("relu_in_stats backward (every kernel under _ReluInStatsBackward)",
+     "_ReluInStatsBackward"),
+    ("relu_in_stats forward (relu, f32 statistics)", "_ReluInStats"),
+    ("lean rebuild pass in the backward (fma, H/W resize, padding)", LEAN_REBUILD_SCOPE),
+    ("lean stage input in the forward (fma, H/W resize, padding)", LEAN_INPUT_SCOPE),
+    ("depth expansion backward (BmmBackward0, BaddbmmBackward0)", "BmmBackward0"),
+    ("depth expansion backward (BmmBackward0, BaddbmmBackward0)", "BaddbmmBackward0"),
+    ("depth expansion forward (tap regroup copy + product)", EXPANSION_SCOPE),
 ]
 
 
@@ -141,23 +163,42 @@ def kind_of(name):
 
 @contextlib.contextmanager
 def scoped_layout_copies():
-    """``GeneralConv3d.forward`` with its channels-last copy inside a
-    profiler scope named ``K3_COPY_SCOPE``, so that the trace can tell those
-    copies from the others; the same computation."""
-    from corrifnet_tpu_torch.nn import conv
+    """The model with profiler scopes around what gets a row of its own
+    (the same computation): ``GeneralConv3d.forward``'s channels-last copy
+    (``K3_COPY_SCOPE``), a lean stage's conv input (``LEAN_INPUT_SCOPE`` in
+    the forward, ``LEAN_REBUILD_SCOPE`` when the backward rebuilds it) and
+    the fused convs' depth expansion (``EXPANSION_SCOPE``)."""
+    from corrifnet_tpu_torch.nn import conv, depthfuse, leandec
 
-    def forward(self, x):
-        y = self.conv(x)
+    def forward(self, x, depth_fuse=None):
+        y = self.conv(x, depth_fuse)
         with torch.profiler.record_function(K3_COPY_SCOPE):
             y = y.permute(0, 2, 3, 4, 1).contiguous()
         return conv.relu_instancenorm(y).permute(0, 4, 1, 2, 3)
 
-    saved = conv.GeneralConv3d.forward
-    conv.GeneralConv3d.forward = forward
+    prepare = leandec.LeanGeneralConv3d._prepare
+    expand = depthfuse.depth_expand
+
+    def scoped_prepare(self, x, depth_fuse):
+        scope = LEAN_INPUT_SCOPE if torch.is_grad_enabled() else LEAN_REBUILD_SCOPE
+        with torch.profiler.record_function(scope):
+            return prepare(self, x, depth_fuse)
+
+    def scoped_expand(*args, **kwargs):
+        with torch.profiler.record_function(EXPANSION_SCOPE):
+            return expand(*args, **kwargs)
+
+    patches = [(conv.GeneralConv3d, "forward", forward),
+               (leandec.LeanGeneralConv3d, "_prepare", scoped_prepare),
+               (depthfuse, "depth_expand", scoped_expand)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        conv.GeneralConv3d.forward = saved
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def device_time_by_kind(trace_path):
@@ -248,6 +289,8 @@ def main(argv=None):
     ap.add_argument("--profile-forwards", type=int, default=3)
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
+    ap.add_argument("--lean", choices=sorted(LEAN), default="none",
+                    help="the decoder's lean setting (decoder_lean)")
     ap.add_argument("--out", default="build/profile_eval")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -260,10 +303,10 @@ def main(argv=None):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
-                   f"pallas_fused_blocks {args.fused}"]
+                   f"pallas_fused_blocks {args.fused}, decoder_lean {LEAN[args.lean]}"]
 
     model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
-                         pallas_fused_blocks=args.fused)
+                         pallas_fused_blocks=args.fused, decoder_lean=LEAN[args.lean])
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((args.batch, 3, 3, 224, 224), generator=gen, device="cuda")
 

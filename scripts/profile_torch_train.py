@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Time and profile the port's MMVit4 training step on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10] [--fused] [--out DIR]
+    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10] [--fused]
+        [--lean none|true|false] [--out DIR]
 
 At 224x224, bf16 compute over f32 parameters, transformer dropout 0.1,
 BatchNorm on batch statistics, Adam, random weights from seed 0 and a random
 batch that stays on the card (``--fused``: with ``pallas_fused_blocks``, the
-encoder bottlenecks through kernels K4a-K4d, each a kind of its own below):
+encoder bottlenecks through kernels K4a-K4d, each a kind of its own below;
+``--lean``: the config's ``decoder_lean``, none by default, which at batch 4
+is the lean decoder):
 
 1. the step (forward, backward, optimizer) timed with CUDA events: median
    of ``--iters`` steps after warm-up, patches/s, peak memory allocated;
 2. a torch.profiler trace of a few steps: the device's busy share of the
    profiled wall time (union of kernel intervals over the host-clock
    window), device time by kind of kernel (the kernels under K3's autograd
-   node and the channels-last copies before K3 each a row of their own)
+   node, the channels-last copies before K3, relu_in_stats forward and
+   backward, the lean stages' input made and rebuilt, and the depth
+   expansion forward and backward each a row of their own)
    and by kernel name, and the launches of the port's own kernels per step.
 
 Writes ``profile.txt`` and ``trace.json`` under ``--out``. Fails without a GPU.
@@ -33,7 +38,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from profile_torch_eval import (busy_share, device_time_by_kind,  # noqa: E402
+from profile_torch_eval import (LEAN, busy_share, device_time_by_kind,  # noqa: E402
                                 kind_of, scoped_layout_copies)
 
 from corrifnet_tpu_torch import ops  # noqa: E402
@@ -49,6 +54,8 @@ def main(argv=None):
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
+    ap.add_argument("--lean", choices=sorted(LEAN), default="none",
+                    help="the decoder's lean setting (decoder_lean)")
     ap.add_argument("--out", default="build/profile_train")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -61,10 +68,11 @@ def main(argv=None):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
-                   f"dropout 0.1, Adam, pallas_fused_blocks {args.fused}"]
+                   f"dropout 0.1, Adam, pallas_fused_blocks {args.fused}, "
+                   f"decoder_lean {LEAN[args.lean]}"]
 
     model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
-                         pallas_fused_blocks=args.fused)
+                         pallas_fused_blocks=args.fused, decoder_lean=LEAN[args.lean])
     model.set_dropout_rng(DropoutRng(0, "cuda"))
     step = make_train_step(init_state(model, "Adam"))
     gen = torch.Generator(device="cuda").manual_seed(0)

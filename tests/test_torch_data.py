@@ -19,6 +19,7 @@ from corrifnet_tpu import data as jax_data
 from corrifnet_tpu.data import dataset as jax_dataset
 from corrifnet_tpu_torch import config as port_config
 from corrifnet_tpu_torch import data as port_data
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 _TEXT_LINES = ["40", "2", "5", "0.1", "4", "3", "0.0002", "SGD",
                "BCEWithLogitsLoss", "BCEWithLogitsLoss", "Jaccard",

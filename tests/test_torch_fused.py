@@ -31,6 +31,7 @@ from corrifnet_tpu_torch import ops
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.models.resnet3d import Bottleneck3D
 from corrifnet_tpu_torch.testing import calibrate_batchnorm
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 # the JAX suite's bounds for the fused block against the standard one
 # (tests/test_pallas_block.py:50-60,86-93): f32 sums in another order
@@ -338,7 +339,7 @@ def test_fused_model_backward_agrees_with_the_standard_model(fused_model_and_inp
 
 
 _REFUSED = {
-    "fuse_expand_bn": True, "depth_mode": "pruned", "decoder_lean": True,
+    "fuse_expand_bn": True, "depth_mode": "pruned",
     "decoder_chunk": 2, "decoder_remat": True, "mesh_shape": [1, 1],
     "extended_checkpoints": True, "transfer_checkpoint": "some/dir",
 }

@@ -15,6 +15,8 @@ given ``philox_keep_mask`` of the key the kernel is given.
 
 from __future__ import annotations
 
+import copy
+
 import pytest
 import torch
 
@@ -624,9 +626,10 @@ def test_model_forward_runs_every_kernel(cuda, fused):
         out = model(torch.zeros(2, 3, 3, 64, 64, device="cuda"))
     torch.cuda.synchronize()
     assert out.shape == (2, 3, 1, 224, 224) and bool(torch.isfinite(out).all())
+    # at B=2 the decoder is lean (batch rule): K3 ends the 15 RFM blocks only
     assert {n: w.launches for n, w in ops.KERNELS.items()} == {
         "correlation_fusion": 1, "correlation_fusion_bwd": 0,
-        "fused_attention": 4, "fused_attention_bwd": 0, "relu_instancenorm": 27,
+        "fused_attention": 4, "fused_attention_bwd": 0, "relu_instancenorm": 15,
         "relu_instancenorm_bwd": 0,
         "pointwise_conv_stats": 108 * fused, "pointwise_conv_stats_bwd": 0,
         "conv3x3_fma_relu_stats": 39 * fused, "conv3x3_fma_relu_stats_bwd": 0}
@@ -640,7 +643,115 @@ def test_model_forward_runs_every_kernel(cuda, fused):
     torch.cuda.synchronize()
     assert {n: w.launches for n, w in ops.KERNELS.items()} == {
         "correlation_fusion": 1, "correlation_fusion_bwd": 1,
-        "fused_attention": 4, "fused_attention_bwd": 4, "relu_instancenorm": 27,
-        "relu_instancenorm_bwd": 27,
+        "fused_attention": 4, "fused_attention_bwd": 4, "relu_instancenorm": 15,
+        "relu_instancenorm_bwd": 15,
         "pointwise_conv_stats": 108 * fused, "pointwise_conv_stats_bwd": 108 * fused,
         "conv3x3_fma_relu_stats": 39 * fused, "conv3x3_fma_relu_stats_bwd": 39 * fused}
+
+
+# ---------------------------------------------------------------- the decoder
+
+
+def _on_both_devices(module, call, inputs, cotangent):
+    """``call(module, *inputs)`` on the CPU and on the card (a copy of the
+    module, same parameters): the output (a tensor or a tuple of tensors)
+    and the gradients of sum(fma_or_output * cotangent) w.r.t. the inputs
+    and the module's parameters, all as CPU tensors."""
+    results = {}
+    for dev in ("cpu", "cuda"):
+        mod = copy.deepcopy(module).to(dev)
+        leaves = [x.to(dev).requires_grad_() for x in inputs]
+        out = call(mod, *leaves)
+        head = out.y * out.a + out.b if isinstance(out, tuple) else out
+        grads = torch.autograd.grad((head * cotangent.to(dev)).sum(),
+                                    leaves + list(mod.parameters()))
+        outs = list(out) if isinstance(out, tuple) else [out]
+        results[dev] = ([t.detach().cpu() for t in outs], [g.cpu() for g in grads])
+    return results["cpu"], results["cuda"]
+
+
+@pytest.mark.parametrize("kind", ["linear", "nearest"])
+def test_depth_fused_conv_on_the_card_equals_the_cpu(cuda, kind):
+    """A depth-fused decoder conv at its real shape, f32: d1_c1 (16 channels
+    at 64 rows of 128x128, up2 into 8 channels at 128 rows) and d1_c2 (the
+    24-channel skip at its 3 rows and the 8-channel run at 128 rows). Every
+    entry of the output and of the gradients of the input(s), the weight and
+    the bias within 1e-5 of the sum of the magnitudes of the products it
+    sums (the CPU's plain chain on |inputs|, |parameters|, |cotangent|): a
+    weight gradient sums 2M products that cancel."""
+    from corrifnet_tpu_torch.nn import Conv, resize_linear, resize_nearest
+
+    gen = torch.Generator().manual_seed(5)
+    conv = Conv(16 if kind == "linear" else 32, 8, 3, 1, 1, padding_mode="replicate")
+    conv.reset_parameters(gen)
+    if kind == "linear":
+        xs = [torch.randn((1, 16, 64, 128, 128), generator=gen)]
+    else:
+        xs = [torch.randn((1, 24, 3, 128, 128), generator=gen),
+              torch.randn((1, 8, 128, 128, 128), generator=gen)]
+    g = torch.randn((1, 8, 128, 128, 128), generator=gen)
+    (out, grads), (out_c, grads_c) = _on_both_devices(
+        conv, lambda c, *x: c(x[0] if kind == "linear" else x, (kind, 128)), xs, g)
+
+    def plain(c, *x):
+        if kind == "linear":
+            return c(resize_linear(x[0], (128,) * 3))
+        return c(torch.cat([resize_nearest(x[0], (128,) * 3), x[1]], 1))
+
+    magnitude = copy.deepcopy(conv)
+    with torch.no_grad():
+        for p in magnitude.parameters():
+            p.abs_()
+    leaves = [x.abs().requires_grad_() for x in xs]
+    mag_out = plain(magnitude, *leaves)
+    mags = [mag_out.detach()] + list(torch.autograd.grad(
+        (mag_out * g.abs()).sum(), leaves + list(magnitude.parameters())))
+    assert out_c[0].shape == (1, 8, 128, 128, 128)
+    for got, want, mag in zip(out_c + grads_c, out + grads, mags):
+        assert bool(((got - want).abs() <= 1e-5 * mag).all()), rel_max(got, want)
+
+
+def test_lean_stage_on_the_card_equals_the_cpu(cuda):
+    """A lean stage at its real shape, f32: d4_c2 (the 192-channel skip at its
+    3 rows of 16x16 and the 128-channel handoff at 16 rows, into 64
+    channels). The output handoff within 1e-5 of the CPU's largest entry; the
+    gradients of the handoff, the skip, the weight and the bias under a
+    random cotangent of the next fma within 1e-4 of the CPU's norm (a ReLU
+    input within rounding of 0 may fall on the other side on the other
+    device)."""
+    from corrifnet_tpu_torch.nn.leandec import LeanGeneralConv3d, LeanHandoff
+
+    gen = torch.Generator().manual_seed(6)
+    stage = LeanGeneralConv3d(192 + 128, 64, 3, 1, 1, "replicate")
+    stage.conv.reset_parameters(gen)
+    inputs = [torch.relu(torch.randn((1, 128, 16, 16, 16), generator=gen)),
+              torch.rand((1, 128, 1, 1, 1), generator=gen) + 0.5,
+              torch.randn((1, 128, 1, 1, 1), generator=gen),
+              torch.randn((1, 192, 3, 16, 16), generator=gen)]
+    g = torch.randn((1, 64, 16, 16, 16), generator=gen)
+    (out, grads), (out_c, grads_c) = _on_both_devices(
+        stage, lambda st, y, a, b, skip: st((skip, LeanHandoff(y, a, b)), ("nearest", 16)),
+        inputs, g)
+    for got, want in zip(out_c, out):
+        assert rel_max(got, want) <= 1e-5
+    for got, want in zip(grads_c, grads):
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("lean,k3", [(None, 15), (False, 27)])
+def test_b4_training_step_launches_k3_per_decoder_setting(cuda, lean, k3):
+    """One bf16 training forward and backward at B=4, 224x224: K3 and K3b
+    launch 15 times with the lean decoder (the batch rule at B=4), 27 with
+    ``decoder_lean=False``."""
+    from corrifnet_tpu_torch.models import create_model
+
+    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda",
+                         transformer_dropout=0.0, decoder_lean=lean)
+    model.train()
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    x = torch.randn(4, 3, 3, 224, 224, device="cuda")
+    model(x).float().mean().backward()
+    torch.cuda.synchronize()
+    assert ops.relu_instancenorm.launches == k3
+    assert ops.relu_instancenorm_bwd.launches == k3

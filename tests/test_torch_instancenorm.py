@@ -22,6 +22,7 @@ import torch
 import corrifnet_tpu.ops.instancenorm as jax_in
 from corrifnet_tpu_torch import ops
 from corrifnet_tpu_torch.ops import instancenorm as t_in
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 IN_ATOL = 1e-5  # f32 statistics over the volume, summed in another order
 H100_SMS = 132

@@ -29,6 +29,7 @@ from corrifnet_tpu.models.torch_import import mmvit4_variables_from_state_dict
 from corrifnet_tpu_torch.models import create_model, mmvit4_state_dict_from_variables
 from corrifnet_tpu_torch.models.jax_import import flatten_variables
 from corrifnet_tpu_torch.testing import calibrate_batchnorm
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 # the JAX tree's parameter count (MMVit4().init at 64x64), batch_stats excluded
@@ -128,9 +129,10 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
                 "models.decoder", "models.jax_import", "models.mmvit4",
-                "models.registry", "models.resnet3d", "nn", "nn.conv", "nn.init",
-                "nn.norm", "nn.resize", "nn.transformer", "ops", "ops.attention",
-                "ops.build", "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
+                "models.registry", "models.resnet3d", "nn", "nn.conv",
+                "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.resize",
+                "nn.transformer", "ops", "ops.attention", "ops.build",
+                "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
                 "run.evaluate", "run.main", "run.segplot", "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
                 "train.state", "utils", "utils.logfiles"):

@@ -21,6 +21,7 @@ from corrifnet_tpu.models import torch_import as ti
 from corrifnet_tpu_torch import nn as tnn
 from corrifnet_tpu_torch.models.decoder import DecoderFuse
 from corrifnet_tpu_torch.models.resnet3d import Bottleneck3D
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 # f32 bounds: convolutions, matmuls and reductions summed in another order
 CONV_ATOL = 2e-5
@@ -319,16 +320,19 @@ def decoder_case():
               (1, 192, 3, 4, 4), (1, 192, 8, 8, 8)]
     xs = [_normal(s, 29 + i) for i, s in enumerate(shapes)]
     params = ti._decoder(_sd(dec, "decoder_fuse"))
-    return _run_torch(dec, *xs), xs, params
+    return dec.state_dict(), xs, params
 
 
-# (fuse_depth, lean): the plain resize-then-conv chain the port is written
-# as, and the JAX module's default at B=1 (depth-fused, lean)
+# (fuse_depth, lean) on both sides: the plain resize-then-conv chain, and the
+# default at B=1 (depth-fused, lean)
 @pytest.mark.parametrize("fuse_depth,lean", [(False, False), (True, None)])
 def test_decoder_fuse_matches_jax(decoder_case, fuse_depth, lean):
     from corrifnet_tpu.models.decoder import DecoderFuse as JD
 
-    got, xs, params = decoder_case
+    state, xs, params = decoder_case
+    dec = DecoderFuse(fuse_depth=fuse_depth, lean=lean)
+    dec.load_state_dict(state)
+    got = _run_torch(dec.eval(), *xs)
     jm = JD(use_pallas_epilogue=True, fuse_depth=fuse_depth, lean=lean)
     fwd = jax.jit(lambda v, *a: jm.apply(v, *a, False))
     want = np.asarray(fwd({"params": params}, *(jnp.asarray(_cl(x)) for x in xs)))

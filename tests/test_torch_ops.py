@@ -27,6 +27,7 @@ from corrifnet_tpu_torch.ops import attention as t_attn
 from corrifnet_tpu_torch.ops import correlation as t_corr
 from corrifnet_tpu_torch.ops import fusedconv as t_fc
 from corrifnet_tpu_torch.ops import instancenorm as t_in
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 # f32 bounds: K1 and K3 differ from the JAX paths only by the order of f32
 # sums; K2 sums 2048-long score rows and 2048-long PV products.

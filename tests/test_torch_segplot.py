@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 # by module path: corrifnet_tpu.run binds the name ``segplot`` to the function
 jax_segplot = importlib.import_module("corrifnet_tpu.run.segplot")

@@ -33,6 +33,10 @@ from corrifnet_tpu_torch import ops
 from corrifnet_tpu_torch.models import jax_import
 from corrifnet_tpu_torch.ops import attention as t_attn
 from torch_train_step import check_train_step, jax_step  # noqa: F401 (fixture)
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
+
+# the default decoder on both sides: depth-fused, lean at B=1
+DECODER_LEAN = None
 
 CORR_ATOL = 1e-6   # K1: elementwise, f32
 ATTN_ATOL = 2e-5   # K2: N-long sums of products, f32
@@ -490,7 +494,7 @@ def test_train_step_matches_jax(jax_step, batch, padded):
     """One whole MMVit4 train step and a second after Adam against JAX
     (bounds and their reasons: ``torch_train_step.check_train_step``); the
     B=4 case with a padded sample is in ``test_torch_train_b4.py``."""
-    check_train_step(jax_step, batch, padded)
+    check_train_step(jax_step, batch, padded, DECODER_LEAN)
 
 
 # ---------------------------------------------------------------- the CLI

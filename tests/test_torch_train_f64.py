@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import THREADS, torch_threads  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +26,7 @@ def f64_step():
     float64 on both sides, in a process of its own (it switches JAX to x64
     and both libraries' f32 casts to f64). About 3 minutes and 15 GiB."""
     script = Path(__file__).with_name("torch_step_f64.py")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": str(THREADS),
            "PYTHONPATH": os.pathsep.join(
                [str(script.parent.parent), os.environ.get("PYTHONPATH", "")])}
     res = subprocess.run([sys.executable, str(script)], capture_output=True,

@@ -123,7 +123,7 @@ def release_memory():
 def port_model(batch):
     """MMVit4 of the port with calibrated BatchNorm statistics, f32 values."""
     model = create_model("MMVit4", dtype=torch.float64, device="cpu", seed=0,
-                         transformer_dropout=0.0)
+                         transformer_dropout=0.0, decoder_lean=None)
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -149,13 +149,13 @@ def port_steps(model, batch):
 
 
 def jax_steps(start, batch):
-    """The same two steps in the JAX package (XLA paths, standard decoder
-    chain): the two losses, the first gradients under the port's names and
-    the final state under the port's names."""
+    """The same two steps in the JAX package (XLA paths, the default decoder:
+    depth-fused, lean at B=1): the two losses, the first gradients under the
+    port's names and the final state under the port's names."""
     variables = mmvit4_variables_from_state_dict(start, pack_stage1=True)
     params, stats = to_f64(variables["params"]), to_f64(variables["batch_stats"])
     batch = tuple(jnp.asarray(a, jnp.float64) for a in batch)
-    jm = JaxMMVit4(dtype=jnp.float64, use_pallas=False, decoder_lean=False,
+    jm = JaxMMVit4(dtype=jnp.float64, use_pallas=False, decoder_lean=None,
                    transformer_dropout=0.0)
 
     def loss_fn(params, batch_stats, images, masks, valid):

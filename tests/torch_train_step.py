@@ -4,7 +4,9 @@ on the CPU, shared by the test files that run it at one batch each
 padded sample): two files, so that a test run that gives each file to one
 worker runs the two cases side by side.
 
-Import ``jax_step`` into a test module to get the fixture there.
+Import ``jax_step`` into a test module to get the fixture there; the module
+names the decoder's lean setting of both sides in ``DECODER_LEAN`` (None:
+the lean backward at batch <= 4, the default of both packages).
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ LR = 1e-4
 
 
 @pytest.fixture(scope="module")
-def jax_step():
-    """One jitted JAX value_and_grad of the MMVit4 train loss (standard
-    decoder chain, XLA paths, dropout 0), shared by the step tests."""
+def jax_step(request):
+    """One jitted JAX value_and_grad of the MMVit4 train loss (depth-fused
+    decoder, lean as the test module's ``DECODER_LEAN``, XLA paths, dropout
+    0), shared by the step tests."""
     from corrifnet_tpu.models.mmvit4 import MMVit4 as JaxMMVit4
     from corrifnet_tpu.train.state import _masked_loss_and_jaccard
 
-    jm = JaxMMVit4(dtype=jnp.float32, use_pallas=False, decoder_lean=False,
-                   transformer_dropout=0.0)
+    jm = JaxMMVit4(dtype=jnp.float32, use_pallas=False,
+                   decoder_lean=request.module.DECODER_LEAN, transformer_dropout=0.0)
 
     def loss_fn(params, batch_stats, images, masks, valid):
         out, mut = jm.apply({"params": params, "batch_stats": batch_stats}, images,
@@ -66,10 +69,11 @@ def _agreement(got, want):
     return dot / norms, worst
 
 
-def check_train_step(jax_step, batch, padded):
+def check_train_step(jax_step, batch, padded, decoder_lean):
     """One whole MMVit4 train step at 64x64 in f32, BatchNorm on batch
     statistics, dropout 0, then a second step after Adam, against JAX
-    (use_pallas=False, decoder_lean=False) with the same weights and batch.
+    (use_pallas=False) with the same weights and batch, both sides with the
+    decoder's lean setting ``decoder_lean``.
 
     Bounds. The first step's loss: 1e-5 (the second step's: 1e-3). The
     gradients: cosine of the whole gradient >= 0.97 and every tensor within
@@ -101,7 +105,7 @@ def check_train_step(jax_step, batch, padded):
 
     x, masks, valid = _step_inputs(batch, padded)
     model = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
-                         transformer_dropout=0.0)
+                         transformer_dropout=0.0, decoder_lean=decoder_lean)
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for name, p in model.named_parameters():
