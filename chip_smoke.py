@@ -35,7 +35,10 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the plain version that rounds p and ds to bf16 where they do (2 bf16 ulps
    of the largest entry) and against pure f32 (2e-2), timed at rate 0 and at
    rate 0.1 with SDPA's time, the bound and the achieved TFLOP/s beside (the
-   backward also with the host's share of one launch); at every shape the
+   backward also with the host's share of one launch), and the device time of
+   the kernels' and SDPA's calls from profiler traces (the forward at B=8, the
+   forward and the backward through ``autograd.grad`` at B=4, on the same
+   views), summed over one forward or step; at every shape the
    calls on the views must equal the calls on contiguous copies bit for bit,
    the packed entry ``fused_attention_qkv`` the unpacked one, and two
    backward runs each other. The fused bottleneck convolutions K4a-K4d
@@ -59,7 +62,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    48 images, timed;
 5. the training slice: ``run.main.main`` at full width (MMVit4, 224x224,
    B=4, bf16, dropout 0.1) for one epoch of 8 steps over 40 synthetic
-   patches, with validation by checkpoint and the test; counters reset just
+   patches, with validation by checkpoint and the test, the default
+   program: the data set resident on the card as bf16 images and uint8
+   masks (its bytes are checked); counters reset just
    before and read just after: per training step K1f 1, K1b 1, K2f 4, K2b 4
    (its dq and dk/dv passes count as one launch), K3 15, K3b 15 (at B=4
    the decoder is lean, by the JAX package's batch rule: K3 ends the 15 RFM
@@ -90,7 +95,20 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    lean decoder on the card against the CPU (bounds in its docstring); then
    the device time and peak memory of the decoder's forward and backward at
    B=4 in bf16, for the plain chain and the fused chain with lean off and
-   on.
+   on;
+11. the training entry point's run-level features (``phase_run_level``),
+   phase 5's configuration for two epochs with extended checkpoints, every
+   run through ``run.main.main``: ``--indices 0,1`` over a ``{i}`` config
+   template (two identical runs, the data resident: their largest
+   difference over the final checkpoint's tensors and the log files' values
+   is the witness); the same streamed (``CORRIFNET_DEVICE_DATA=0``), within
+   twice the witness, with step seconds, patches/s and peak memory beside
+   the resident run's; ``--train-deadline-s 0.001`` (one epoch, tested,
+   ``state0@8`` written), then ``--resume`` to the second epoch (the log
+   files continued, within twice the witness, the launches per step of
+   phase 5 counted around the resumed run); a ``transfertype: yestr`` warm
+   start from the first run's ``Finaliremmodel0``. Phase 11 runs after
+   phase 8, in its directory.
 
 Then one JSON line of kernel results, the card line again, and last the
 device line ``{"ok": true, "device": {...}}``. Imports no jax.
@@ -246,6 +264,12 @@ PHILOX = (20260, 17)
 # the timed evaluation: fold 2 of 5 of 240 patches is 48 images, 6 batches of 8
 TIMED_SET = 240
 TRAIN_SET = 40  # 29 training patches (8 steps of 4), 3 validation, 8 test
+TRAIN_EVALS = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
+# the training set resident on the card, wire-cast: bf16 images, uint8 masks
+RESIDENT_BYTES = TRAIN_SET * (3 * 3 * 224 * 224 * 2 + 3 * 1 * 224 * 224)
+# the per-epoch log files beside lrFile.txt
+LOG_FILES = ("trainFile.txt", "trainaccFile.txt", "trainepochFile.txt", "valFile.txt",
+             "valaccFile.txt", "testFile.txt", "testaccFile.txt")
 
 
 def log(msg):
@@ -729,6 +753,9 @@ def check_attention_forward(ops, tally, b, gen):
                 q16, k16, v16, scale=SCALE))
             l_dev = device_ms(lambda: F.scaled_dot_product_attention(
                 q16, k16, v16, scale=SCALE))
+            k_prof = profiled_device_ms(lambda: ops.fused_attention_qkv(qkv16, SCALE))
+            l_prof = profiled_device_ms(lambda: F.scaled_dot_product_attention(
+                q16, k16, v16, scale=SCALE))
         tally.check(err <= K2_ATOL, f"{name} {shape} no lse f32 {err:.3e}")
         tally.check(e16 <= K2_BF16_ATOL, f"{name} {shape} no lse bf16 {e16:.3e}")
         tally.check(u16 <= K2_ROUNDING_ULPS, f"{name} {shape} no lse bf16 {u16:.2f} ulps")
@@ -746,8 +773,10 @@ def check_attention_forward(ops, tally, b, gen):
             f"TFLOP/s; at rate {RATE} {d_dev:.4f}) plain {p_ms:.4f} library (SDPA) {l_ms:.4f} "
             f"(queued: {l_dev:.4f}) bound {bound:.4f} ms ({by}); kernel / SDPA "
             f"{k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
-            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f}); device (profiler, 20 calls) "
+            f"kernel {k_prof:.4f} SDPA {l_prof:.4f} ms, kernel / SDPA {k_prof / l_prof:.2f}")
         tally.add(name, calls, max(e16, e16d), k_ms, p_ms, bound, by, l_ms)
+        tally.add_device(name, calls, k_prof, l_prof, bound)
 
 
 def check_attention_step(ops, tally, b, gen, rate):
@@ -838,6 +867,9 @@ def check_attention_step(ops, tally, b, gen, rate):
         ll = [t.detach().requires_grad_() for t in (q16, k16, v16)]
         l_ms = median_ms(lambda: F.scaled_dot_product_attention(*ll, scale=SCALE))
         l_dev = device_ms(lambda: F.scaled_dot_product_attention(*ll, scale=SCALE))
+        k_prof = profiled_device_ms(lambda: ops.fused_attention_qkv(packed16, SCALE, rate,
+                                                                    PHILOX))
+        l_prof = profiled_device_ms(lambda: F.scaled_dot_product_attention(*ll, scale=SCALE))
         bound, by = attention_bound_ms(shape, 2, 4)
         log(f"  {fwd} {tag} as (B, N, 3, H, 64) views, lse (through autograd): f32 max_abs "
             f"{err:.3e} (bound {K2_ATOL}), lse {lse_err:.3e} (bound 1e-5); bf16 max_abs "
@@ -847,8 +879,10 @@ def check_attention_step(ops, tally, b, gen, rate):
             f"{attention_tflops(shape, 2, k_dev):.1f} TFLOP/s) plain {p_ms:.4f} library "
             f"(SDPA, rate 0) {l_ms:.4f} (queued: {l_dev:.4f}) bound {bound:.4f} ms ({by}); "
             f"kernel / SDPA {k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
-            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f}); device (profiler, 20 calls) "
+            f"kernel {k_prof:.4f} SDPA {l_prof:.4f} ms, kernel / SDPA {k_prof / l_prof:.2f}")
         tally.add(fwd, calls, e16, k_ms, p_ms, bound, by, l_ms)
+        tally.add_device(fwd, calls, k_prof, l_prof, bound)
 
         def direct_bwd():
             return attn._launch_bwd(q16, k16, v16, out16b, lse16, g16, SCALE, rate, *PHILOX)
@@ -861,6 +895,10 @@ def check_attention_step(ops, tally, b, gen, rate):
         lo = F.scaled_dot_product_attention(*ll, scale=SCALE)
         l_ms = median_ms(lambda: torch.autograd.grad(lo, ll, g16, retain_graph=True))
         l_dev = device_ms(lambda: torch.autograd.grad(lo, ll, g16, retain_graph=True))
+        k_prof = profiled_device_ms(lambda: torch.autograd.grad(graph16, packed16, g16,
+                                                                retain_graph=True))
+        l_prof = profiled_device_ms(lambda: torch.autograd.grad(lo, ll, g16,
+                                                                retain_graph=True))
         del po, lo, graph16
         bound, by = attention_bound_ms(shape, 5, 8)
         log(f"  {bwd} {tag} as (B, N, 3, H, 64) views (through autograd, equal to the direct "
@@ -873,8 +911,11 @@ def check_attention_step(ops, tally, b, gen, rate):
             f"{k_host:.4f}) plain (autograd) {p_ms:.4f} library (SDPA backward, rate 0) "
             f"{l_ms:.4f} (queued, through autograd: {l_dev:.4f}) bound {bound:.4f} ms ({by}); kernel / SDPA "
             f"{k_ms / l_ms:.2f} (queued {k_dev / l_dev:.2f}), kernel / bound "
-            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f})")
+            f"{k_ms / bound:.1f} (queued {k_dev / bound:.1f}); device (profiler, 20 calls, "
+            f"both through autograd) kernel {k_prof:.4f} SDPA {l_prof:.4f} ms, kernel / SDPA "
+            f"{k_prof / l_prof:.2f}")
         tally.add(bwd, calls, ge16, k_ms, p_ms, bound, by, l_ms)
+        tally.add_device(bwd, calls, k_prof, l_prof, bound)
 
 
 def check_attention_strided(ops, tally, b, gen):
@@ -1278,15 +1319,26 @@ def phase_train_slice(ops, tmp, fused=False):
     peak = torch.cuda.max_memory_allocated()
 
     steps = r["train_steps"]
-    evals = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
+    log(f"  {steps} training steps, {TRAIN_EVALS} evaluation batches in {wall:.2f} s; "
+        f"launches {launches}")
+    check_train_launches(launches, steps, fused)
+    check_resident(r, RESIDENT_BYTES)
+    check_run(r, 0, epochs=1)
+    med = median_step_seconds(r, peak)
+    return launches, {"patches_per_s": TRAIN_B / med, "step_seconds": med,
+                      "peak_bytes": peak}
+
+
+def check_train_launches(launches, steps, fused=False):
+    """The launches of one epoch of ``steps`` training steps and its
+    TRAIN_EVALS evaluation batches."""
+    evals = TRAIN_EVALS
     want = {"correlation_fusion": steps + evals, "correlation_fusion_bwd": steps,
             "fused_attention": 4 * (steps + evals), "fused_attention_bwd": 4 * steps,
             # lean at B <= 4, the evaluation batches of the run included
             "relu_instancenorm": K3_LEAN * (steps + evals),
             "relu_instancenorm_bwd": K3_LEAN * steps,
             **k4_counts(steps + evals, steps, fused)}
-    log(f"  {steps} training steps, {evals} evaluation batches in {wall:.2f} s; "
-        f"launches {launches}")
     log(f"  per training step: K1f 1, K1b {launches['correlation_fusion_bwd'] / steps:g}, "
         f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 {K3_LEAN}, K3b "
         f"{launches['relu_instancenorm_bwd'] / steps:g} (forward-only batches launch "
@@ -1298,10 +1350,20 @@ def phase_train_slice(ops, tmp, fused=False):
     if steps != 8 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
 
+
+def check_resident(r, want):
+    """The run kept ``want`` bytes on the card (0: it streamed)."""
+    log(f"  resident on the card: {r['resident_bytes']} bytes (expected {want})")
+    if r["resident_bytes"] != want:
+        raise AssertionError(f"resident bytes {r['resident_bytes']}, expected {want}")
+
+
+def check_run(r, index, epochs):
+    """The run directory holds every file of a run, and the losses and
+    Jaccards of its last epoch and its test are in their bands."""
     run_dir = Path(r["run_dir"])
-    files = ["lrFile.txt", "trainFile.txt", "trainaccFile.txt", "trainepochFile.txt",
-             "valFile.txt", "valaccFile.txt", "testFile.txt", "testaccFile.txt",
-             "fpsfile.txt", "iremmodel0", "Finaliremmodel0",
+    files = ["lrFile.txt", *LOG_FILES, "fpsfile.txt", f"iremmodel{index}",
+             f"Finaliremmodel{index}",
              # the first test image's segplot family; the curves need matplotlib
              # (without it the run prints one line naming them)
              "segmentation_image.png", "test_image.png", "test_image_R.png",
@@ -1314,9 +1376,11 @@ def phase_train_slice(ops, tmp, fused=False):
     if missing:
         raise AssertionError(f"run directory lacks {missing}")
     h = r["history"]
-    losses = {"train": h["train_loss"][0], "validation": h["val_loss"][0],
+    if len(h["train_loss"]) != epochs or len(h["val_jac"]) != epochs:
+        raise AssertionError(f"{epochs} epochs expected: {h}")
+    losses = {"train": h["train_loss"][-1], "validation": h["val_loss"][-1],
               "test": r["test_loss"]}
-    jaccards = {"train": h["train_jac"][0], "validation": h["val_jac"][0],
+    jaccards = {"train": h["train_jac"][-1], "validation": h["val_jac"][-1],
                 "test": r["test_jaccard"]}
     log(f"  losses {losses}; jaccards {jaccards}; test FPS {r['fps']:.3f}")
     for what, value in losses.items():
@@ -1327,15 +1391,147 @@ def phase_train_slice(ops, tmp, fused=False):
         if not (np.isfinite(value) and 0.0 <= value <= 1.0):
             raise AssertionError(f"{what} jaccard {value}")
 
-    rest = h["step_seconds"][2:]
+
+def median_step_seconds(r, peak):
+    rest = r["history"]["step_seconds"][2:]
     med = statistics.median(rest)
     log(f"  step seconds after the first two steps ({len(rest)} steps, the last "
-        f"one a padded batch): median {med:.4f} (min {min(rest):.4f}, max "
+        f"of an epoch a padded batch): median {med:.4f} (min {min(rest):.4f}, max "
         f"{max(rest):.4f}); patches/s {TRAIN_B / med:.3f} (from the max "
         f"{TRAIN_B / max(rest):.3f}, from the min {TRAIN_B / min(rest):.3f}); peak "
         f"memory allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)")
-    return launches, {"patches_per_s": TRAIN_B / med, "step_seconds": med,
-                      "peak_bytes": peak}
+    return med
+
+
+_NUMBER = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+
+
+def run_values(r, index):
+    """{name: flat f64 tensor} of a run: every tensor of its final
+    checkpoint, and the numbers of each log file (fpsfile aside: a time),
+    lrFile's deadline line left out."""
+    run_dir = Path(r["run_dir"])
+    final = torch.load(run_dir / f"Finaliremmodel{index}", weights_only=True)
+    values = {k: v.double().flatten() for k, v in final.items()}
+    for name in ("lrFile.txt", *LOG_FILES):
+        lines = (run_dir / name).read_text().splitlines()
+        values[name] = torch.tensor([float(x) for ln in lines
+                                     if not ln.startswith("deadline reached")
+                                     for x in _NUMBER.findall(ln)], dtype=torch.float64)
+    return values
+
+
+def run_difference(a, b):
+    """{name: largest |difference|} between two runs' ``run_values``."""
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        raise AssertionError("the runs' checkpoints or log files differ in structure")
+    return {k: (a[k] - b[k]).abs().max().item() if a[k].numel() else 0.0 for k in a}
+
+
+def largest(d, names=None):
+    """(value, name) of the largest entry of ``d`` (over ``names``)."""
+    top = max(names or d, key=d.get)
+    return d[top], top
+
+
+def phase_run_level(ops, tmp):
+    """The training entry point's run-level features at full width, every
+    run through ``run.main.main`` over TRAIN_SET patches, two epochs with
+    extended checkpoints: (a) ``--indices 0,1`` over a ``{i}`` template, two
+    identical runs with the data resident and the wire cast on, whose
+    largest difference is the witness; (b) the same streamed
+    (``CORRIFNET_DEVICE_DATA=0``), within twice the witness of (a)'s
+    model0; (c) ``--train-deadline-s 0.001`` (one epoch, tested,
+    ``state0@8``), then ``--resume`` to the second epoch, within twice the
+    witness, the kernels' launches read around the resumed run; (d) a
+    ``yestr`` warm start from (a)'s ``Finaliremmodel0``, one epoch. A
+    witness of 0 asks for equal bits."""
+    from corrifnet_tpu_torch.run.main import main as train_main
+
+    for i in (0, 1):
+        write_run_inputs(TRAIN_SET, tmp, f"run_{i}.json", n_epochs=2,
+                         extended_checkpoints=True)
+    template, cfg0 = str(Path(tmp) / "run_{i}.json"), str(Path(tmp) / "run_0.json")
+
+    def train(*args):
+        return train_main(["--device", "cuda", *args])
+
+    log("  (a) --indices 0,1: two identical runs, the data resident, the wire cast on")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = train("--config", template, "--indices", "0,1", "--run-root", f"{tmp}/a")
+    peak = torch.cuda.max_memory_allocated()
+    for i in (0, 1):
+        check_resident(runs[i], RESIDENT_BYTES)
+        check_run(runs[i], i, epochs=2)
+    model0 = run_values(runs[0], 0)
+    witness = run_difference(model0, run_values(runs[1], 1))
+    logs = [k for k in witness if k.endswith(".txt")]
+    log(f"  witness, model0 against model1: largest difference over every tensor of "
+        f"Finaliremmodel and every log value %.6e (%s); over the log values alone "
+        f"%.6e (%s)" % (*largest(witness), *largest(witness, logs)))
+    resident_s = median_step_seconds(runs[0], peak)
+
+    def within_witness(what, r):
+        d = run_difference(model0, run_values(r, 0))
+        ratio = {k: d[k] / witness[k] if witness[k] else (0.0 if d[k] == 0 else
+                                                            float("inf")) for k in d}
+        log(f"  {what} against model0: largest difference %.6e (%s), bound twice the "
+            f"witness, {2 * largest(witness)[0]:.6e}; over the log values %.6e (%s); "
+            f"per tensor or file over its own witness: largest %.3f (%s), over 1.5 "
+            f"{sum(v > 1.5 for v in ratio.values())}, over 2 "
+            f"{sum(v > 2 for v in ratio.values())} of {len(ratio)}"
+            % (*largest(d), *largest(d, logs), *largest(ratio)))
+        if largest(d)[0] > 2 * largest(witness)[0]:
+            raise AssertionError(f"{what} differs from model0 by {largest(d)}, the "
+                                 f"witness is {largest(witness)}")
+
+    log("  (b) the same run streamed (CORRIFNET_DEVICE_DATA=0)")
+    before = os.environ.get("CORRIFNET_DEVICE_DATA")
+    os.environ["CORRIFNET_DEVICE_DATA"] = "0"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        streamed = train("--config", cfg0, "--run-root", f"{tmp}/b")
+        streamed_peak = torch.cuda.max_memory_allocated()
+    finally:
+        if before is None:
+            del os.environ["CORRIFNET_DEVICE_DATA"]
+        else:
+            os.environ["CORRIFNET_DEVICE_DATA"] = before
+    check_resident(streamed, 0)
+    check_run(streamed, 0, epochs=2)
+    within_witness("streamed", streamed)
+    streamed_s = median_step_seconds(streamed, streamed_peak)
+    log(f"  resident / streamed: median step {resident_s:.4f} / {streamed_s:.4f} s, "
+        f"patches/s {TRAIN_B / resident_s:.3f} / {TRAIN_B / streamed_s:.3f}, peak memory "
+        f"{peak} / {streamed_peak} bytes")
+
+    log("  (c) --train-deadline-s 0.001, then --resume")
+    first = train("--config", cfg0, "--run-root", f"{tmp}/c", "--train-deadline-s", "0.001")
+    run_dir = Path(first["run_dir"])
+    check_run(first, 0, epochs=1)
+    states = sorted(p.name for p in run_dir.glob("state0*"))
+    if states != ["state0@8"]:
+        raise AssertionError(f"after the deadline: {states}, expected state0@8")
+    reset_counts(ops)
+    resumed = train("--config", cfg0, "--resume", str(run_dir))
+    launches = read_counts(ops)
+    check_train_launches(launches, resumed["train_steps"] - 8)
+    check_run(resumed, 0, epochs=2)
+    epochs = (run_dir / "trainepochFile.txt").read_text().split()
+    lr = (run_dir / "lrFile.txt").read_text()
+    headers = [lr.count(f"Epoch: {e} LR:") for e in (0, 1)]
+    log(f"  resumed: trainepochFile {epochs}, lrFile headers per epoch {headers}, "
+        f"deadline line kept {'deadline reached after epoch 0' in lr}")
+    if epochs != ["0", "1"] or headers != [1, 1]:
+        raise AssertionError(f"resumed logs: trainepochFile {epochs}, headers {headers}")
+    within_witness("deadline then resume", resumed)
+
+    log("  (d) transfertype yestr from (a)'s Finaliremmodel0, one epoch")
+    warm = write_run_inputs(TRAIN_SET, tmp, "warm.json", n_epochs=1, transfertype="yestr",
+                            transfer_checkpoint=str(Path(runs[0]["run_dir"])
+                                                    / "Finaliremmodel0"))
+    check_run(train("--config", str(warm), "--run-root", f"{tmp}/d"), 0, epochs=1)
 
 
 def seeded_image():
@@ -1702,6 +1898,9 @@ def main():
                 "both entry points, same sizes")
             fused_eval_launches, eval_on = phase_eval_slice(ops, tmp, fused=True)
             fused_launches, train_on = phase_train_slice(ops, tmp, fused=True)
+            log("phase 11: the training entry point's run-level features, 40 patches, "
+                "2 epochs, B=4, bf16, dropout 0.1")
+            phase_run_level(ops, tmp)
         finally:
             os.chdir(here)
     for counts, fused_counts in ((eval_launches, fused_eval_launches),

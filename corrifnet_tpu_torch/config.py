@@ -141,8 +141,6 @@ _NOT_HONOURED = {
     "decoder_chunk": (lambda v: v != 0, "depth-chunked decoder backwards"),
     "decoder_remat": (lambda v: bool(v), "decoder rematerialization"),
     "mesh_shape": (lambda v: v is not None, "SPMD training over a device mesh"),
-    "extended_checkpoints": (lambda v: bool(v), "full train-state checkpoints"),
-    "transfer_checkpoint": (lambda v: v is not None, "a warm start"),
 }
 # TPU machinery without effect on what is computed or written
 _NO_EFFECT = {"chain_steps": 1, "auto_layout": False, "scan_unroll": 1,

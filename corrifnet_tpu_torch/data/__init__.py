@@ -7,9 +7,11 @@ from corrifnet_tpu_torch.data.crossval import (
 )
 from corrifnet_tpu_torch.data.dataset import (
     Batch,
+    DeviceDataset,
     batch_iterator,
     make_batches,
     num_batches,
+    wire_cast_batch,
 )
 from corrifnet_tpu_torch.data.dstl import (
     DstlArrays,
@@ -21,6 +23,7 @@ from corrifnet_tpu_torch.data.dstl import (
 
 __all__ = [
     "Batch",
+    "DeviceDataset",
     "DstlArrays",
     "batch_iterator",
     "cross_val",
@@ -31,5 +34,6 @@ __all__ = [
     "normalize_per_fold",
     "num_batches",
     "synthetic_dstl",
+    "wire_cast_batch",
     "write_permutation",
 ]

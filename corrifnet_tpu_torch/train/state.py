@@ -11,7 +11,10 @@ semantics:
   * optimizer: PyTorch's Adam at its defaults (betas 0.9/0.999, eps 1e-8
     outside the square root, which is also ``optax.scale_by_adam``) or plain
     SGD (F2_MAIN.py:168-173); the step is given the epoch's LR
-    (``train.schedule``); the optimizer state is never checkpointed.
+    (``train.schedule``). The reference checkpoints the weights only; with
+    ``extended_checkpoints`` the whole ``TrainState`` (weights, the
+    optimizer's state and the step) is also written each epoch, for
+    ``run.main --resume`` (``train.checkpoint.Checkpointer.save_state``).
 
 The JAX package's ``_AutoLayoutStep``, ``LayoutSlot`` and
 ``make_train_multi_step`` exist for the TPU's compiler and dispatch and
@@ -41,6 +44,30 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    def state_dict(self) -> dict:
+        """What a resume needs, on the CPU: the model's ``state_dict``, the
+        optimizer's (Adam's ``exp_avg``, ``exp_avg_sq`` and per-parameter
+        ``step``) and the number of steps taken."""
+        optimizer = self.optimizer.state_dict()
+        optimizer["state"] = {
+            i: {k: v.detach().cpu() if torch.is_tensor(v) else v for k, v in s.items()}
+            for i, s in optimizer["state"].items()
+        }
+        return {
+            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "optimizer": optimizer,
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: dict) -> "TrainState":
+        """Restore ``state_dict()``'s output in place. The optimizer moves
+        its moments to the parameters' device and keeps Adam's ``step`` a
+        CPU f32 scalar, as it makes them."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        return self
 
 
 def make_optimizer(kind: str, params) -> torch.optim.Optimizer:

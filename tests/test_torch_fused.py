@@ -341,8 +341,8 @@ def test_fused_model_backward_agrees_with_the_standard_model(fused_model_and_inp
 _REFUSED = {
     "fuse_expand_bn": True, "depth_mode": "pruned",
     "decoder_chunk": 2, "decoder_remat": True, "mesh_shape": [1, 1],
-    "extended_checkpoints": True, "transfer_checkpoint": "some/dir",
 }
+_RUN_LEVEL = {"extended_checkpoints": True, "transfer_checkpoint": "some/dir"}
 
 
 @pytest.mark.parametrize("entry", ["main", "evaluate"])
@@ -359,6 +359,33 @@ def test_entry_points_refuse_fields_the_port_does_not_honour(field, entry, tmp_p
     run = main.main if entry == "main" else evaluate.main
     with pytest.raises(NotImplementedError, match=rf"{field}=.*ROADMAP\.md"):
         run(["--config", "cfg.json", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("entry", ["main", "evaluate"])
+@pytest.mark.parametrize("field", sorted(_RUN_LEVEL))
+def test_entry_points_accept_run_level_fields(field, entry, tmp_path, monkeypatch):
+    """Both entry points take ``extended_checkpoints`` and
+    ``transfer_checkpoint`` and go on to build the model (the run stops
+    there); ``run.evaluate`` ignores both, as the JAX evaluation does, and
+    ``run.main`` reads ``transfer_checkpoint`` only with ``transfertype``
+    ``yestr`` (here the default ``notr``)."""
+    from corrifnet_tpu_torch import data
+    from corrifnet_tpu_torch.run import evaluate, main
+
+    class Built(Exception):
+        pass
+
+    def create(name, **kwargs):
+        raise Built(name)
+
+    mod = main if entry == "main" else evaluate
+    monkeypatch.setattr(mod, "create_model", create)
+    monkeypatch.chdir(tmp_path)
+    data.write_permutation(15, ".", seed=0)
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"train_set_size": 15, "synthetic_seed": 0, field: _RUN_LEVEL[field]}))
+    with pytest.raises(Built, match="MMVit4"):
+        mod.main(["--config", "cfg.json", "--device", "cpu"])
 
 
 def test_check_supported_accepts_defaults_and_names_inert_fields(capsys):

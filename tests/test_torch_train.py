@@ -516,8 +516,8 @@ def test_training_cli_on_cpu(tmp_path, monkeypatch):
     cfg = {"train_set_size": 15, "fno": 2, "fsiz": 5, "n_epochs": 1,
            "modeltype": "MMVit4", "synthetic_seed": 0, "dtype": "float32"}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    with pytest.raises(SystemExit):
-        run_main.main(["--config", "cfg.json", "--resume", "some_dir"])
+    with pytest.raises(FileNotFoundError, match="extended_checkpoints"):
+        run_main.main(["--config", "cfg.json", "--device", "cpu", "--resume", "some_dir"])
     r = run_main.main(["--config", "cfg.json", "--run-root", ".", "--device", "cpu"])
 
     run_dir = tmp_path / r["run_dir"]
