@@ -54,10 +54,15 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    saved tensors) at B=4, the kernel's and the library composition's device
    time (the kernels of 20 calls in a ``torch.profiler`` trace; the
    library's backward through ``autograd.grad``), their ratio, TFLOP/s and
-   the share of the bound, and the sums over one forward or step;
+   the share of the bound, and the sums over one forward or step. Then the
+   shapes MMVit2 and mmformer add, as above: K2f and K2b with the
+   multimodal transformer at N=1536 (B=8 forward; B=4 forward and backward
+   at rate 0 and 0.1; the keep masks at n=1536), K3 and K3b at the conv
+   encoders' and the larger RFM volumes (the plan's regime printed with
+   each);
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
-   and read just after (K1 >= 1, K2 >= 2, K3 = 27, K3b 0 launches per
+   and read just after (K1 1, K2 4, K3 27, K3b 0 launches per
    forward: at B=8 the decoder's chain is the fused standard one); then over
    48 images, timed;
 5. the training slice: ``run.main.main`` at full width (MMVit4, 224x224,
@@ -108,7 +113,18 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    files continued, within twice the witness, the launches per step of
    phase 5 counted around the resumed run); a ``transfertype: yestr`` warm
    start from the first run's ``Finaliremmodel0``. Phase 11 runs after
-   phase 8, in its directory.
+   phase 8, in its directory;
+12. the conv-encoder family (``phase_conv_family``), MMVit2 then mmformer:
+   (a) ``run.evaluate.main`` over 16 images at B=8 in bf16 with the
+   counters reset just before and read just after (per forward K1f 1 /
+   0, K2f 4, K3 69, K3b 0, K4 0), then 48 timed; (b) ``run.main.main`` at
+   B=4, bf16, dropout 0.1, 40 patches resident, one epoch (per step K1f
+   and K1b 1 / 0, K2f and K2b 4, K3 and K3b 57), the run directory, the
+   losses' band, step seconds, patches/s, images/s and peak memory; (c)
+   phase 6 and (d) phase 7 for the model, the whole-model bound being the
+   larger of 1e-4 and twice the CPU's own change under a 1e-6 change of
+   the input, and a gradient tensor outside phase 7's bound held against
+   the same step in float64 on the card (see ``phase_train_step``).
 
 Then one JSON line of kernel results, the card line again, and last the
 device line ``{"ok": true, "device": {...}}``. Imports no jax.
@@ -122,6 +138,7 @@ once) over the H100 SXM's 3.35 TB/s and its operations over 989 TFLOP/s
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import importlib.util
 import json
@@ -177,9 +194,11 @@ def k1_shape(b):
     return (3, b, 512, 512)
 
 
-def k2_shapes(b):
-    """(shape, launches per forward) of the two attention shapes."""
-    return [((b, 8, 512, 64), 3), ((b, 8, 2048, 64), 1)]
+def k2_shapes(b, model="MMVit4"):
+    """(shape, launches per forward) of the two attention shapes: three
+    IntraFormers at N=512 and the multimodal transformer over 4 token groups
+    (MMVit4) or 3 (MMVit2 and mmformer)."""
+    return [((b, 8, 512, 64), 3), ((b, 8, 512 * (4 if model == "MMVit4" else 3), 64), 1)]
 
 
 def k3_shapes(b, chain=True):
@@ -193,11 +212,37 @@ def k3_shapes(b, chain=True):
                    ((b, 128, 128, 128, 8), 3)] if chain else [])
 
 
+ENCODERS = 3
 # K3 calls per forward: the RFM blocks', and the chain's where lean is off
 K3_LEAN, K3_STANDARD = 15, 27
 
 
-ENCODERS = 3
+def k3_encoder_shapes(b):
+    """(shape, launches per forward) of the K3 calls of MMVit2's and
+    mmformer's three conv encoders: 14 GeneralConv3d each."""
+    return [((b, 3, 224, 224, 8), 2 * ENCODERS), ((b, 2, 112, 112, 16), 3 * ENCODERS),
+            ((b, 1, 56, 56, 32), 3 * ENCODERS), ((b, 1, 28, 28, 64), 3 * ENCODERS),
+            ((b, 1, 14, 14, 64), 3 * ENCODERS)]
+
+
+def k3_conv_family_shapes(b, chain=True):
+    """(shape, launches per forward) of MMVit2's and mmformer's K3 calls: the
+    encoders', the RFM blocks' on the stacked skips (depths 3/2/1/1 at
+    224/112/56/28), and with ``chain`` the decoder chain's (as MMVit4's)."""
+    rfm = [((b, 8, 8, 8, 192), 3), ((b, 1, 28, 28, 192), 3), ((b, 1, 56, 56, 96), 3),
+           ((b, 2, 112, 112, 48), 3), ((b, 3, 224, 224, 24), 3)]
+    return k3_encoder_shapes(b) + rfm + (k3_shapes(b)[5:] if chain else [])
+
+
+# launches per forward of each model: K1f, K2f, and K3 at B=8 (the standard
+# chain) and at B=4 (lean: the chain's 12 stages end in relu_in_stats)
+MODEL_LAUNCHES = {
+    "MMVit4": {"k1": 1, "k2": 4, "k3_eval": K3_STANDARD, "k3_step": K3_LEAN},
+    "MMVit2": {"k1": 1, "k2": 4, "k3_eval": 69, "k3_step": 57},
+    "mmformer": {"k1": 0, "k2": 4, "k3_eval": 69, "k3_step": 57},
+}
+
+
 K4_PER_FORWARD = {"pointwise_conv_stats": 108, "conv3x3_fma_relu_stats": 39}
 
 
@@ -566,8 +611,9 @@ def k3_streams(fn, lone, calls=4):
     return all(torch.equal(o, lone) for o in outs)
 
 
-def check_instancenorm(ops, tally, b, gen, backward):
-    """K3 at every decoder shape (and with ``backward`` K3b, on the
+def check_instancenorm(ops, tally, b, gen, backward, shapes=None):
+    """K3 at every decoder shape (or at ``shapes``: (shape, calls) pairs;
+    and with ``backward`` K3b, on the
     statistics K3 saved) against the plain versions: f32 within K3_ATOL +
     K3_RTOL rel, bf16 within 2 bf16 ulps of the plain version run in f32 on
     the same inputs plus the f32 bound; two runs and runs queued on two
@@ -579,7 +625,7 @@ def check_instancenorm(ops, tally, b, gen, backward):
     from corrifnet_tpu_torch.ops import instancenorm as t_in
 
     # the training step at B=4 runs the lean decoder: K3 ends the RFMs only
-    for shape, calls in k3_shapes(b, chain=not backward):
+    for shape, calls in shapes or k3_shapes(b, chain=not backward):
         x = randn(shape, gen, 0.2)
         x16 = x.bfloat16()
         name = "relu_instancenorm"
@@ -604,7 +650,9 @@ def check_instancenorm(ops, tally, b, gen, backward):
             k_dev = profiled_device_ms(lambda: ops.relu_instancenorm(x16))
             l_dev = profiled_device_ms(lambda: F.instance_norm(F.relu(ncdhw)))
         bound = bytes_bound_ms(2 * x.numel())
-        log(f"  {name} {shape} x{calls}: f32 max_abs {err.max().item():.3e} (bound "
+        regime = t_in.plan(shape[0], x[0, ..., 0].numel(), shape[-1], 2,
+                           max_blocks=t_in._max_blocks(x.device)).regime
+        log(f"  {name} {shape} x{calls} ({regime}): f32 max_abs {err.max().item():.3e} (bound "
             f"{K3_ATOL} + {K3_RTOL} rel); bf16 max_abs {e16.max().item():.3e} (bound 2 bf16 "
             f"ulps + the f32 bound); repeatable, also on two streams: {same}; bf16 call "
             f"kernel {k_ms:.4f} plain {p_ms:.4f} library {l_ms:.4f} ms; device (profiler, 20 "
@@ -651,7 +699,9 @@ def check_instancenorm(ops, tally, b, gen, backward):
         l_dev = profiled_device_ms(lib_bwd)
         del out16, lib_out
         bound = bytes_bound_ms(3 * x.numel())
-        log(f"  {name} {shape} x{calls}: f32 max_abs {err.max().item():.3e} (bound "
+        regime = t_in.plan(shape[0], x[0, ..., 0].numel(), shape[-1], 2, backward=True,
+                           max_blocks=t_in._max_blocks(x.device)).regime
+        log(f"  {name} {shape} x{calls} ({regime}): f32 max_abs {err.max().item():.3e} (bound "
             f"{K3_ATOL} + {K3_RTOL} rel); bf16 max_abs {e16.max().item():.3e} (bound 2 bf16 "
             f"ulps + the f32 bound); through autograd equal to the direct call, repeatable, "
             f"also on two streams: {same}; bf16 call kernel (autograd) {k_ms:.4f} plain "
@@ -713,7 +763,7 @@ def host_ms(fn, launches=20):
     return took / launches * 1e3
 
 
-def check_attention_forward(ops, tally, b, gen):
+def check_attention_forward(ops, tally, b, gen, model="MMVit4"):
     """K2f as the evaluation path launches it: ``fused_attention_qkv`` on the
     (B, N, 3, H, 64) projection under ``no_grad``, so on strided views, with
     the output in (B, N, H, 64) memory and without the lse. The plain
@@ -721,7 +771,7 @@ def check_attention_forward(ops, tally, b, gen):
     evaluation runs; rate 0.1 is held to the same bounds here because this is
     the largest batch the kernels see."""
     name = "fused_attention"
-    for shape, calls in k2_shapes(b):
+    for shape, calls in k2_shapes(b, model):
         bb, h, n, _ = shape
         qkv, _ = packed_inputs(shape, gen)
         qkv16 = qkv.bfloat16()
@@ -779,7 +829,7 @@ def check_attention_forward(ops, tally, b, gen):
         tally.add_device(name, calls, k_prof, l_prof, bound)
 
 
-def check_attention_step(ops, tally, b, gen, rate):
+def check_attention_step(ops, tally, b, gen, rate, model="MMVit4"):
     """K2f with the lse and K2b as a training step launches them: through
     ``fused_attention_qkv`` on a (B, N, 3, H, 64) projection that needs a
     gradient and ``backward`` with a cotangent in (B, N, H, 64) memory, so
@@ -790,7 +840,7 @@ def check_attention_step(ops, tally, b, gen, rate):
     forward's output and lse must give the same bits."""
     from corrifnet_tpu_torch.ops import attention as attn
 
-    for shape, calls in k2_shapes(b):
+    for shape, calls in k2_shapes(b, model):
         bb, h, n, _ = shape
         qkv, g = packed_inputs(shape, gen)
         qkv16, g16 = qkv.bfloat16(), g.bfloat16()
@@ -918,7 +968,7 @@ def check_attention_step(ops, tally, b, gen, rate):
         tally.add_device(bwd, calls, k_prof, l_prof, bound)
 
 
-def check_attention_strided(ops, tally, b, gen):
+def check_attention_strided(ops, tally, b, gen, model="MMVit4"):
     """At each attention shape, the kernels on the (B, H, N, 64) views of a
     (B, N, 3, H, 64) qkv tensor and a (B, N, H, 64) cotangent against the
     same calls on contiguous copies, and ``fused_attention_qkv`` against
@@ -926,7 +976,7 @@ def check_attention_strided(ops, tally, b, gen):
     backward runs: equal bits."""
     from corrifnet_tpu_torch.ops import attention as attn
 
-    for (_, h, n, _), _ in k2_shapes(b):
+    for (_, h, n, _), _ in k2_shapes(b, model):
         for dtype in (torch.float32, torch.bfloat16):
             qkv, g = (t.to(dtype) for t in packed_inputs((b, h, n, 64), gen))
             views = unpack(qkv)
@@ -960,10 +1010,10 @@ def check_attention_strided(ops, tally, b, gen):
             tally.check(no_copy, f"attention output or gradient layout N={n} {dtype}")
 
 
-def check_keep_mask(ops, tally):
+def check_keep_mask(ops, tally, n=2048):
     from corrifnet_tpu_torch.ops.attention import kernel_keep_mask
 
-    n, count, bh0 = 2048, 3, 13
+    count, bh0 = 3, 13
     want = ops.philox_keep_mask(*PHILOX, count, n, RATE, "cuda", bh0=bh0)
     for layout in ("tile", "rows", "cols"):
         got = kernel_keep_mask(*PHILOX, bh0, count, n, RATE, layout=layout)
@@ -1206,19 +1256,49 @@ def phase_kernels(ops):
     step.report(f"B={TRAIN_B} training step")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    failures = fwd.failures + rate0.failures + step.failures
+    failures = fwd.failures + rate0.failures + step.failures + phase_kernels_conv_family(ops)
     if failures:
         raise AssertionError(f"kernels outside their bounds: {failures}")
     return step.rows
+
+
+def phase_kernels_conv_family(ops):
+    """Phase 3 at the shapes MMVit2 and mmformer add: K2f and K2b with the
+    multimodal transformer at N=1536 (3 token groups), K3 and K3b at the
+    conv encoders' and the RFM blocks' volumes (the decoder chain's are
+    MMVit4's, checked above). Inputs from a generator of their own. Returns
+    the failures."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    log(f" MMVit2 and mmformer, evaluation shapes (B={EVAL_B}), sums over one forward "
+        f"(K3: the encoders' and the RFM blocks' calls):")
+    fwd = Tally()
+    check_attention_forward(ops, fwd, EVAL_B, gen, model="MMVit2")
+    check_instancenorm(ops, fwd, EVAL_B, gen, backward=False,
+                       shapes=k3_conv_family_shapes(EVAL_B, chain=False))
+    fwd.report(f"MMVit2 B={EVAL_B} forward")
+    torch.cuda.empty_cache()
+    log(f" MMVit2 and mmformer, training shapes (B={TRAIN_B}), sums over one step:")
+    step, rate0 = Tally(), Tally()
+    check_attention_step(ops, rate0, TRAIN_B, gen, 0.0, model="MMVit2")
+    rate0.report(f"MMVit2 B={TRAIN_B} rate 0")
+    check_attention_step(ops, step, TRAIN_B, gen, RATE, model="MMVit2")
+    check_keep_mask(ops, step, n=1536)
+    check_attention_strided(ops, step, TRAIN_B, gen, model="MMVit2")
+    check_instancenorm(ops, step, TRAIN_B, gen, backward=True,
+                       shapes=k3_conv_family_shapes(TRAIN_B, chain=False))
+    step.report(f"MMVit2 B={TRAIN_B} training step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return fwd.failures + rate0.failures + step.failures
 
 
 # ------------------------------------------------------------------ slices
 
 
 def write_run_inputs(n, tmp, name, **extra):
-    """randInd{n}.txt and a JSON config (the 18-line defaults with MMVit4)
-    in ``tmp``, which must be the working directory: cross_val reads the
-    permutation from there."""
+    """randInd{n}.txt and a JSON config (the 18-line defaults with MMVit4,
+    or ``modeltype`` in ``extra``) in ``tmp``, which must be the working
+    directory: cross_val reads the permutation from there."""
     perm = np.random.default_rng(0).permutation(n)
     (Path(tmp) / f"randInd{n}.txt").write_text("\n".join(map(str, perm)) + "\n")
     cfg = Path(tmp) / name
@@ -1227,12 +1307,12 @@ def write_run_inputs(n, tmp, name, **extra):
     return cfg
 
 
-def evaluate(n, tmp, fused):
+def evaluate(n, tmp, fused, model="MMVit4"):
     """Drive the evaluation CLI over fold 2 of 5 of ``n`` synthetic patches."""
     from corrifnet_tpu_torch.run.evaluate import main as evaluate_main
 
-    cfg = write_run_inputs(n, tmp, f"eval{n}_{int(fused)}.json",
-                           pallas_fused_blocks=fused)
+    cfg = write_run_inputs(n, tmp, f"eval{n}_{int(fused)}_{model}.json",
+                           pallas_fused_blocks=fused, modeltype=model)
     return evaluate_main(["--config", str(cfg), "--device", "cuda"])
 
 
@@ -1255,18 +1335,18 @@ def k4_counts(forwards, steps, fused):
     return want
 
 
-def phase_eval_slice(ops, tmp, fused=False):
-    """16 images through the entry point with the launch counters reset
-    just before and read just after; then a test fold of 48 images (6
-    batches) timed through the same entry point. Returns the launch counts
-    and the timed numbers."""
+def phase_eval_slice(ops, tmp, fused=False, model="MMVit4"):
+    """16 images of ``model`` through the entry point with the launch
+    counters reset just before and read just after; then a test fold of 48
+    images (6 batches) timed through the same entry point. Returns the
+    launch counts and the timed numbers."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
-    r = evaluate(80, tmp, fused)
+    r = evaluate(80, tmp, fused, model)
     launches = read_counts(ops)
     peak = torch.cuda.max_memory_allocated()
-    timed = evaluate(TIMED_SET, tmp, fused)
+    timed = evaluate(TIMED_SET, tmp, fused, model)
     forwards = len(r["batch_seconds"])
     log(f"  jaccard2 {r['jaccard_mean']:.6f} +- {r['jaccard_std']:.6f}  "
         f"f1 {r['f1_mean']:.6f} +- {r['f1_std']:.6f}  n_images {r['n_images']}")
@@ -1279,9 +1359,10 @@ def phase_eval_slice(ops, tmp, fused=False):
         if not 0.0 <= r[key] <= 1.0:
             raise AssertionError(f"{key} out of [0, 1]: {r[key]}")
     per_forward = {n: c / forwards for n, c in launches.items()}
-    if not (per_forward["correlation_fusion"] >= 1
-            and per_forward["fused_attention"] >= 2
-            and per_forward["relu_instancenorm"] == K3_STANDARD
+    want = MODEL_LAUNCHES[model]
+    if not (per_forward["correlation_fusion"] == want["k1"]
+            and per_forward["fused_attention"] == want["k2"]
+            and per_forward["relu_instancenorm"] == want["k3_eval"]
             and per_forward["relu_instancenorm_bwd"] == 0
             and per_forward["correlation_fusion_bwd"] == 0
             and per_forward["fused_attention_bwd"] == 0
@@ -1301,14 +1382,15 @@ def phase_eval_slice(ops, tmp, fused=False):
                       "peak_bytes": peak}
 
 
-def phase_train_slice(ops, tmp, fused=False):
-    """The training CLI at full width for one epoch of 8 steps, validation
-    by checkpoint and the test; launch counters reset just before and read
-    just after. Returns the launch counts of the run and its timed numbers."""
+def phase_train_slice(ops, tmp, fused=False, model="MMVit4"):
+    """The training CLI at full width for one epoch of 8 steps of ``model``,
+    validation by checkpoint and the test; launch counters reset just before
+    and read just after. Returns the launch counts of the run and its timed
+    numbers."""
     from corrifnet_tpu_torch.run.main import main as train_main
 
-    cfg = write_run_inputs(TRAIN_SET, tmp, f"train_{int(fused)}.json", n_epochs=1,
-                           pallas_fused_blocks=fused)
+    cfg = write_run_inputs(TRAIN_SET, tmp, f"train_{int(fused)}_{model}.json", n_epochs=1,
+                           pallas_fused_blocks=fused, modeltype=model)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
@@ -1321,7 +1403,7 @@ def phase_train_slice(ops, tmp, fused=False):
     steps = r["train_steps"]
     log(f"  {steps} training steps, {TRAIN_EVALS} evaluation batches in {wall:.2f} s; "
         f"launches {launches}")
-    check_train_launches(launches, steps, fused)
+    check_train_launches(launches, steps, fused, model)
     check_resident(r, RESIDENT_BYTES)
     check_run(r, 0, epochs=1)
     med = median_step_seconds(r, peak)
@@ -1329,20 +1411,25 @@ def phase_train_slice(ops, tmp, fused=False):
                       "peak_bytes": peak}
 
 
-def check_train_launches(launches, steps, fused=False):
-    """The launches of one epoch of ``steps`` training steps and its
-    TRAIN_EVALS evaluation batches."""
+def check_train_launches(launches, steps, fused=False, model="MMVit4"):
+    """The launches of one epoch of ``steps`` training steps of ``model``
+    and its TRAIN_EVALS evaluation batches."""
     evals = TRAIN_EVALS
-    want = {"correlation_fusion": steps + evals, "correlation_fusion_bwd": steps,
-            "fused_attention": 4 * (steps + evals), "fused_attention_bwd": 4 * steps,
+    per = MODEL_LAUNCHES[model]
+    k1, k2, k3 = per["k1"], per["k2"], per["k3_step"]
+    want = {"correlation_fusion": k1 * (steps + evals), "correlation_fusion_bwd": k1 * steps,
+            "fused_attention": k2 * (steps + evals), "fused_attention_bwd": k2 * steps,
             # lean at B <= 4, the evaluation batches of the run included
-            "relu_instancenorm": K3_LEAN * (steps + evals),
-            "relu_instancenorm_bwd": K3_LEAN * steps,
+            "relu_instancenorm": k3 * (steps + evals),
+            "relu_instancenorm_bwd": k3 * steps,
             **k4_counts(steps + evals, steps, fused)}
-    log(f"  per training step: K1f 1, K1b {launches['correlation_fusion_bwd'] / steps:g}, "
-        f"K2f 4, K2b {launches['fused_attention_bwd'] / steps:g}, K3 {K3_LEAN}, K3b "
+    log(f"  per training step: K1f {launches['correlation_fusion'] / (steps + evals):g}, "
+        f"K1b {launches['correlation_fusion_bwd'] / steps:g}, "
+        f"K2f {launches['fused_attention'] / (steps + evals):g}, "
+        f"K2b {launches['fused_attention_bwd'] / steps:g}, "
+        f"K3 {launches['relu_instancenorm'] / (steps + evals):g}, K3b "
         f"{launches['relu_instancenorm_bwd'] / steps:g} (forward-only batches launch "
-        f"K1f 1, K2f 4, K3 {K3_LEAN} each); K4a "
+        f"K1f {k1}, K2f {k2}, K3 {k3} each); K4a "
         f"{launches['pointwise_conv_stats'] / (steps + evals):g} and K4c "
         f"{launches['conv3x3_fma_relu_stats'] / (steps + evals):g} per forward, K4b "
         f"{launches['pointwise_conv_stats_bwd'] / steps:g} and K4d "
@@ -1538,14 +1625,22 @@ def seeded_image():
     return torch.randn((1, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
 
 
-def phase_whole_model(fused=False):
+def phase_whole_model(fused=False, model="MMVit4"):
+    """One image through ``model`` in f32 on the card (kernels) and on the
+    CPU (plain versions), same weights: max |difference| of the
+    probabilities within WHOLE_MODEL_ATOL; for MMVit2 and mmformer within
+    the larger of that and twice the witness, what the CPU's own output
+    moves under a 1e-6 change of the input (MMVit2's correlation softmaxes
+    saturate at random initialization and amplify f32 rounding)."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm
 
     x = seeded_image()
-    cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0)
-    # O(1) activations, as trained statistics give (see calibrate_batchnorm)
-    calibrate_batchnorm(cpu, x)
+    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0)
+    # O(1) activations, as trained statistics give (see calibrate_batchnorm;
+    # MMVit2 and mmformer have no BatchNorm)
+    if model == "MMVit4":
+        calibrate_batchnorm(cpu, x)
     if fused:
         # same weights and statistics (the calibration hooks BatchNorm.forward,
         # which the fused blocks do not call)
@@ -1560,13 +1655,19 @@ def phase_whole_model(fused=False):
         t1 = time.perf_counter()
         out_cpu = cpu(x)
         t2 = time.perf_counter()
+        witness = 0.0 if model == "MMVit4" else (
+            cpu(x * (1 + 1e-6)) - out_cpu).abs().max().item()
     diff = (out_gpu - out_cpu).abs().max().item()
-    log(f"  B=1 f32 GPU {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; max |GPU - CPU| "
-        f"{diff:.3e} (bound {WHOLE_MODEL_ATOL}); shape {tuple(out_gpu.shape)}")
+    bound = max(WHOLE_MODEL_ATOL, 2 * witness)
+    log(f"  {model} B=1 f32 GPU {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; max |GPU - CPU| "
+        f"{diff:.3e} (bound {bound:.3e}"
+        + ("" if model == "MMVit4" else f": {WHOLE_MODEL_ATOL}, or twice the witness, the "
+           f"CPU against itself under a 1e-6 change of the input, {witness:.3e}")
+        + f"); shape {tuple(out_gpu.shape)}")
     if out_gpu.shape != (1, 3, 1, 224, 224) or not bool(torch.isfinite(out_gpu).all()):
         raise AssertionError("whole-model output malformed")
-    if not diff <= WHOLE_MODEL_ATOL:
-        raise AssertionError(f"whole model GPU vs CPU {diff} > {WHOLE_MODEL_ATOL}")
+    if not diff <= bound:
+        raise AssertionError(f"whole model GPU vs CPU {diff} > {bound}")
 
 
 def phase_fused_block():
@@ -1623,12 +1724,12 @@ def gradient_agreement(got, want):
     return (diff / norm) ** 0.5, statistics.median(v for v, _ in l2), max(l2)
 
 
-def phase_train_step(decoder_lean=None):
-    """One f32 training step at B=1 without dropout, BatchNorm on batch
-    statistics: the loss and every gradient tensor on the card (kernels,
-    forward and backward) against the CPU (plain versions), same weights
-    and input; the decoder lean by the batch rule (``decoder_lean=None``) or
-    its fused standard chain (``False``).
+def phase_train_step(decoder_lean=None, model="MMVit4"):
+    """One f32 training step of ``model`` at B=1 without dropout, BatchNorm
+    (MMVit4's) on batch statistics: the loss and every gradient tensor on the
+    card (kernels, forward and backward) against the CPU (plain versions),
+    same weights and input; the decoder lean by the batch rule
+    (``decoder_lean=None``) or its fused standard chain (``False``).
 
     At random initialization the gradient of this network is badly
     conditioned: some forty normalization layers in sequence amplify f32
@@ -1639,8 +1740,13 @@ def phase_train_step(decoder_lean=None):
     the run: the witness, the CPU against itself with the input scaled by
     1 + 1e-6. The loss is held to 1e-5; every gradient tensor's
     ||GPU - CPU|| / ||CPU|| to twice the witness's worst tensor, and the
-    whole gradient's to twice the witness's. A backward that is wrong in
-    one branch fails this: the skip gradients that the library's
+    whole gradient's to twice the witness's; for MMVit2 and mmformer, whose
+    gradient is better conditioned, a tensor outside that bound is held
+    against the step in float64 on the card instead (its card's distance
+    within twice the larger of the CPU's and the witness's worst): a conv
+    bias before ReLU+InstanceNorm at 128^3 sums two million cancelling
+    terms, and the card's and the CPU's f32 sums of it differ by 10% of its
+    norm. A backward that is wrong in one branch fails this: the skip gradients that the library's
     nearest-resize backward got wrong on the card (see nn/resize.py) read
     0.49 against a bound near 0.12. The kernels' own backward checks
     (phase 3) are the tight ones."""
@@ -1651,9 +1757,10 @@ def phase_train_step(decoder_lean=None):
     gen = torch.Generator().manual_seed(1)
     masks = (torch.rand((1, 3, 1, 224, 224), generator=gen) > 0.5).float()
     valid = torch.ones(1)
-    cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
+    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
                        transformer_dropout=0.0, decoder_lean=decoder_lean)
-    calibrate_batchnorm(cpu, x)
+    if model == "MMVit4":
+        calibrate_batchnorm(cpu, x)
     gpu = copy.deepcopy(cpu).to("cuda")
     witness = copy.deepcopy(cpu)
     loss_gpu, g_gpu = step_gradients(gpu, x, masks, valid)
@@ -1672,9 +1779,71 @@ def phase_train_step(decoder_lean=None):
         f"{whole:.3e} (bound {bound_whole:.3e}); per tensor median {med:.3e}, worst "
         f"{worst[0]:.3e} at {worst[1]} (bound {bound_tensor:.3e}, "
         f"{STEP_WITNESS_FACTOR} times the witness's)")
-    if not (abs(loss_gpu - loss_cpu) <= STEP_LOSS_ATOL and whole <= bound_whole
-            and worst[0] <= bound_tensor):
+    if not (abs(loss_gpu - loss_cpu) <= STEP_LOSS_ATOL and whole <= bound_whole):
         raise AssertionError("training step GPU vs CPU outside its bounds")
+    if worst[0] <= bound_tensor:
+        return
+    if model == "MMVit4":
+        raise AssertionError("training step GPU vs CPU outside its bounds")
+    # the conv-encoder family's gradient is better conditioned than MMVit4's,
+    # so its witness no longer covers the conv biases before ReLU+InstanceNorm,
+    # whose gradients sum millions of cancelling terms (d1_out's: 128^3 a
+    # channel) and differ between two f32 summation orders by percents of
+    # their norm: a tensor outside the bound above is held, as phase 10 holds
+    # the decoder, against the same step in float64 on the card, the card
+    # within twice the larger of the CPU's distance to it and the witness
+    ref = f64_step_gradients(cpu, x, masks, valid)
+    outside = [n for n in g_cpu if ((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm().clamp_min(
+        1e-30)).item() > bound_tensor]
+    per = {n: (((g_gpu[n].double() - ref[n]).norm() / ref[n].norm()).item(),
+               ((g_cpu[n].double() - ref[n]).norm() / ref[n].norm()).item()) for n in outside}
+    over = {n: v for n, v in per.items()
+            if v[0] > STEP_WITNESS_FACTOR * max(v[1], w_worst[0])}
+    log(f"  outside {bound_tensor:.3e}, against the step in float64 on the card, "
+        f"||g - g_f64|| / ||g_f64|| (card, CPU): {per}; over {STEP_WITNESS_FACTOR} times "
+        f"the larger of the CPU's and the witness's {w_worst[0]:.3e}: {over}")
+    if over:
+        raise AssertionError("training step GPU vs CPU outside its bounds")
+
+
+def f64_step_gradients(cpu, x, masks, valid):
+    """``step_gradients`` of a copy of the CPU model in float64 on the card,
+    as CPU tensors (the step has dropout 0)."""
+    model = copy.deepcopy(cpu).to("cuda").double()
+    model.compute_dtype = torch.float64
+    with float64_plain():
+        _, grads = step_gradients(model, x.double(), masks.double(), valid.double())
+    return grads
+
+
+def phase_conv_family(ops, tmp):
+    """Phase 12: MMVit2, then mmformer, through both entry points at full
+    width, and card against CPU in f32. Returns {model: (evaluation
+    numbers, training numbers)}."""
+    numbers = {}
+    for model in ("MMVit2", "mmformer"):
+        want = MODEL_LAUNCHES[model]
+        log(f" (a) {model}: evaluation, 16 images then 48 timed, B={EVAL_B}, bf16; per forward "
+            f"K1f {want['k1']}, K2f {want['k2']}, K3 {want['k3_eval']}, K3b 0, K4 0")
+        _, ev = phase_eval_slice(ops, tmp, model=model)
+        log(f" (b) {model}: training, {TRAIN_SET} patches, 1 epoch, B={TRAIN_B}, bf16, "
+            f"dropout {RATE}, the data set resident; per step K1f {want['k1']}, K1b "
+            f"{want['k1']}, K2f {want['k2']}, K2b {want['k2']}, K3 {want['k3_step']}, K3b "
+            f"{want['k3_step']}")
+        _, tr = phase_train_slice(ops, tmp, model=model)
+        log(f"  {model}: evaluation {ev['images_per_s']:.3f} images/s (batch seconds "
+            f"{ev['batch_seconds']:.4f}, peak {ev['peak_bytes']} bytes); training "
+            f"{tr['patches_per_s']:.3f} patches/s (step seconds {tr['step_seconds']:.4f}, "
+            f"peak {tr['peak_bytes']} bytes)")
+        torch.cuda.empty_cache()
+        log(f" (c) {model}: whole model, B=1 f32, GPU kernels vs CPU plain versions")
+        phase_whole_model(model=model)
+        log(f" (d) {model}: one training step, B=1 f32, dropout 0, GPU kernels vs CPU "
+            f"plain versions")
+        phase_train_step(model=model)
+        torch.cuda.empty_cache()
+        numbers[model] = (ev, tr)
+    return numbers
 
 
 def decoder_inputs(b, dtype, device, seed=0):
@@ -1718,20 +1887,41 @@ def xla_epilogue(y):
     return (ys * a + b).permute(0, 2, 3, 4, 1)
 
 
+@contextlib.contextmanager
+def float64_plain():
+    """While it runs, the kernels' call sites on the models' paths are given
+    their plain versions (at rate 0) and every ``.float()`` is a
+    ``.double()``: a float64 yardstick on the card."""
+    from corrifnet_tpu_torch import ops
+    from corrifnet_tpu_torch.models import mmvit2, mmvit4
+    from corrifnet_tpu_torch.nn import conv as tconv
+    from corrifnet_tpu_torch.nn import transformer
+
+    def plain_attention_qkv(qkv, scale, rate=0.0, philox=None):
+        return ops.attention_plain(*qkv.permute(2, 0, 3, 1, 4).unbind(0), scale)
+
+    sites = [(tconv, "relu_instancenorm", ops.relu_instancenorm_plain),
+             (mmvit2, "correlation_fusion", ops.correlation_fusion_plain),
+             (mmvit4, "correlation_fusion", ops.correlation_fusion_plain),
+             (transformer, "fused_attention_qkv", plain_attention_qkv)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def f64_decoder_gradients(dec, xs):
     """``decoder_step``'s gradients of ``dec`` in float64 on the card, as CPU
-    tensors: K3's call site given its plain version and every ``.float()``
-    made ``.double()`` while it runs."""
-    from corrifnet_tpu_torch import ops
-    from corrifnet_tpu_torch.nn import conv as tconv
-
-    to_float, k3 = torch.Tensor.float, tconv.relu_instancenorm
-    torch.Tensor.float = lambda self, *a, **k: self.double()
-    tconv.relu_instancenorm = ops.relu_instancenorm_plain
-    try:
+    tensors."""
+    with float64_plain():
         _, grads = decoder_step(dec.double(), [x.double() for x in xs])
-    finally:
-        torch.Tensor.float, tconv.relu_instancenorm = to_float, k3
     return {n: g.cpu() for n, g in grads.items()}
 
 
@@ -1901,6 +2091,9 @@ def main():
             log("phase 11: the training entry point's run-level features, 40 patches, "
                 "2 epochs, B=4, bf16, dropout 0.1")
             phase_run_level(ops, tmp)
+            log("phase 12: the conv-encoder family, MMVit2 then mmformer, through both "
+                "entry points and card against CPU")
+            phase_conv_family(ops, tmp)
         finally:
             os.chdir(here)
     for counts, fused_counts in ((eval_launches, fused_eval_launches),

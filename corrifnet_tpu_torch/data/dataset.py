@@ -89,10 +89,10 @@ def wire_cast_batch(b: Batch) -> Batch:
     computing the same:
 
     * images f32 -> bf16, rounded to nearest even (torch's cast). Exact
-      only where the model computes in bf16 (MMVit4 casts its input first,
-      ``models/mmvit4.py``): the same cast happens before the copy instead
-      of after. Callers gate on the compute dtype
-      (``train.loop._wire_cast_enabled``).
+      only where the model computes in bf16 (every ported model casts its
+      input first, ``models/mmvit4.py``, ``models/mmvit2.py``): the same
+      cast happens before the copy instead of after. Callers gate on the
+      compute dtype (``train.loop._wire_cast_enabled``).
     * masks f32 -> uint8 where every value is exactly representable (the
       binary building masks); the train and eval steps cast them back to
       f32. Other masks stay f32.

@@ -1,4 +1,4 @@
-"""JAX MMVit4 variables and gradients -> the port's names.
+"""JAX MMVit4, MMVit2 and mmformer variables and gradients -> the port's names.
 
 ``mmvit4_state_dict_from_variables`` is the inverse of
 ``corrifnet_tpu.models.torch_import.mmvit4_variables_from_state_dict``. It
@@ -12,6 +12,9 @@ after a training step (parameters and running statistics) converts like
 the initial one. ``mmvit4_named_gradients`` maps a JAX gradient tree (the
 ``params`` structure) onto the port's parameter names the same way, so
 gradients compare tensor by tensor under ``named_parameters()``.
+``mmvit2_state_dict_from_variables`` and ``mmvit2_named_gradients`` do the
+same for MMVit2 and mmformer, inverting
+``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW);
@@ -32,6 +35,8 @@ import torch
 
 __all__ = [
     "flatten_variables",
+    "mmvit2_named_gradients",
+    "mmvit2_state_dict_from_variables",
     "mmvit4_named_gradients",
     "mmvit4_state_dict_from_variables",
     "unflatten_variables",
@@ -178,7 +183,8 @@ def _transformer(sd, prefix, params):
 def _decoder(sd, params):
     d = "decoder_fuse"
     _put(sd, f"{d}.final_conv", params["final_conv"], _conv_weight)
-    _put(sd, f"{d}.RFM5_reduce", params["RFM5_reduce"], _conv_weight)
+    if "RFM5_reduce" in params:  # MMVit4's; MMVit2 and mmformer have none
+        _put(sd, f"{d}.RFM5_reduce", params["RFM5_reduce"], _conv_weight)
     for i in range(1, 6):
         for j in range(3):
             _put(sd, f"{d}.RFM{i}.fusion_layer.{j}.conv",
@@ -216,6 +222,54 @@ def mmvit4_named_gradients(grads) -> Dict[str, torch.Tensor]:
     unpacked layout) -> {port parameter name: gradient}. A gradient moves
     with its parameter: the same transposes and indices, no value changes."""
     return mmvit4_state_dict_from_variables({"params": grads})
+
+
+def _conv_encoder(sd, prefix, params):
+    """One JAX ``ConvEncoder`` -> the reference's conv Encoder names: the
+    bare ``e1_c1``, ``e{s}_c{c}.conv`` and ``conv6`` as ``conv``."""
+    _put(sd, f"{prefix}.e1_c1", params["e1_c1"], _conv_weight)
+    for si in range(1, 6):
+        for ci in (1, 2, 3):
+            if (si, ci) != (1, 1):
+                name = f"e{si}_c{ci}"
+                _put(sd, f"{prefix}.{name}.conv", params[name]["conv"], _conv_weight)
+    _put(sd, f"{prefix}.conv", params["conv6"], _conv_weight)
+
+
+def mmvit2_state_dict_from_variables(variables, mmformer: bool = False
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX MMVit2 (or, ``mmformer``, MMFormer) ``variables`` -> port
+    state_dict. The modality axis 0 of ``encoders`` and ``modality_stream``
+    is unstacked and ``modality_pos`` split into ``{m}_pos``. mmformer has no
+    ``qkv_{m}``: the JAX tree's ``qkv`` leaves, which its forward never
+    reads, must be zero (as ``mmvit2_variables_from_state_dict`` fills them)
+    and are dropped; a non-zero one raises, since the tree is then MMVit2's
+    (or holds weights that a conversion would lose)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for mi, m in enumerate(_MODALITIES):
+        _conv_encoder(sd, f"{m}_encoder", _select(params["encoders"], mi))
+        stream = _select(params["modality_stream"], mi)
+        _put(sd, f"{m}_encode_conv", stream["encode_conv"], _dense_as_conv)
+        _transformer(sd, f"{m}_transformer", stream["transformer"])
+        if not mmformer:
+            _put(sd, f"qkv_{m}", stream["qkv"], _dense_as_conv)
+        elif any(np.any(np.asarray(a) != 0) for a in stream["qkv"].values()):
+            raise ValueError(
+                f"mmformer variables with non-zero qkv leaves (modality {m}): an "
+                "MMVit2 tree, or mmformer weights whose unused qkv was not zeroed")
+        sd[f"{m}_pos"] = _t(np.asarray(params["modality_pos"])[mi])
+    _transformer(sd, "multimodal_transformer", params["multimodal_transformer"])
+    _put(sd, "multimodal_decode_conv", params["multimodal_decode_conv"], _dense_as_conv)
+    _decoder(sd, params["decoder"])
+    return sd
+
+
+def mmvit2_named_gradients(grads, mmformer: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of MMVit2's (or MMFormer's) ``params`` -> {port
+    parameter name: gradient}, as ``mmvit4_named_gradients``; mmformer's
+    ``qkv`` gradients are zero in JAX and have no parameter in the port."""
+    return mmvit2_state_dict_from_variables({"params": grads}, mmformer)
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

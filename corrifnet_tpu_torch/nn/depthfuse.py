@@ -2,17 +2,17 @@
 
 Counterpart of ``corrifnet_tpu/nn/depthfuse.py``. The decoder up-samples
 its running state x2 in depth (trilinear, align_corners=True) into a
-replicate-padded 3^3 conv, and resizes each 3-row skip to the running depth
-(nearest) before the concat conv. Both depth resizes are linear maps R, and
-the conv's three depth taps read rows clamp(d + t - 1) of the resized
-volume, so
+replicate-padded 3^3 conv, and resizes each skip (3 rows deep in MMVit4; 3,
+2, 1 or 1 in MMVit2) to the running depth (nearest) before the concat conv.
+Both depth resizes are linear maps R, and the conv's three depth taps read
+rows clamp(d + t - 1) of the resized volume, so
 
     y[d] = sum_t W_t (*) (R z)[clamp(d + t - 1)] = sum_{t,k} M[d,t,k] (W_t (*) z[k])
 
 with the static table ``M[d,t,:] = R[clamp(d + t - 1), :]``: one 2-D conv at
 the COARSE depth with the three taps concatenated on the output channels,
 then one depth expansion. The fine-depth input volume is never built; the
-conv runs at half the rows (``linear``) or at the skip's 3 rows
+conv runs at half the rows (``linear``) or at the skip's own rows
 (``nearest``). Same function as resize-then-conv up to f32 reassociation.
 
 The skip-concat conv's other block, the running state already at the fine
@@ -52,7 +52,10 @@ __all__ = ["coarse_input", "depth_expand", "expand_conv", "fused_resize_conv",
 def _nearest_matrix(src: int, dst: int) -> np.ndarray:
     """(dst, src) one-hot nearest matrix, source index
     ``min(floor(j * (src / dst)), src - 1)`` in float64 (the JAX package's
-    rule; PyTorch's float32 rule gives the same rows for 3 -> 16..128)."""
+    rule). PyTorch's float32 rule gives the same rows wherever src / dst is
+    exact in float32, as for every skip depth the decoders give it: 3 (all of
+    MMVit4's skips, MMVit2's x1), 2 (MMVit2's x2) and 1 (its x3, x4) to
+    16..128."""
     idx = np.minimum(np.floor(np.arange(dst) * (src / dst)).astype(np.int64), src - 1)
     w = np.zeros((dst, src), dtype=np.float64)
     w[np.arange(dst), idx] = 1.0

@@ -145,7 +145,7 @@ class LeanGeneralConv3d(nn.Module):
         if not torch.is_grad_enabled():
             return self._epilogue(self.conv.convolve(prepared, depth_fuse))
         # every tensor prepare made but the skip's images (small: the skip's
-        # 3 rows) is rebuilt in the backward instead of saved
+        # own rows) is rebuilt in the backward instead of saved
         pair = isinstance(x, tuple) and not isinstance(x, LeanHandoff)
         parts = prepared[0]
         keys = {(t.data_ptr(), t.shape, t.stride()): i

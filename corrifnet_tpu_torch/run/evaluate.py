@@ -7,7 +7,8 @@ synthetic) -> batches of
 modality channel 0 -> mean and std.
 
 Weights: ``--weights`` takes a ``.npz`` of the flattened JAX variable tree
-(``/``-joined keys, e.g. ``params/encoders/conv6/kernel``), converted by
+(``/``-joined keys, e.g. ``params/encoders/conv6/kernel``) of the config's
+``modeltype`` (MMVit4, MMVit2 or mmformer), converted by
 ``models.jax_import``, or a ``.pt`` port ``state_dict``. Without it the
 model is initialized from ``cfg.seed``.
 
@@ -28,7 +29,11 @@ import torch
 from corrifnet_tpu_torch.config import check_supported, load_config
 from corrifnet_tpu_torch.data import cross_val, load_dstl, make_batches
 from corrifnet_tpu_torch.metrics import jaccard_f1_pair
-from corrifnet_tpu_torch.models import create_model, mmvit4_state_dict_from_variables
+from corrifnet_tpu_torch.models import (
+    create_model,
+    mmvit2_state_dict_from_variables,
+    mmvit4_state_dict_from_variables,
+)
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
 
 __all__ = ["compute_dtype", "evaluate_run", "load_weights", "main",
@@ -42,14 +47,56 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def load_weights(path):
-    """A port state_dict from a ``.pt`` file or a flattened JAX ``.npz``."""
+# modeltype: the JAX tree -> port state_dict converter of its .npz
+_CONVERTERS = {
+    "MMVit4": mmvit4_state_dict_from_variables,
+    "MMVit2": lambda v: mmvit2_state_dict_from_variables(v, mmformer=False),
+    "mmformer": lambda v: mmvit2_state_dict_from_variables(v, mmformer=True),
+}
+
+
+def _npz_model(params):
+    """Which of MMVit4, MMVit2 and mmformer a JAX ``params`` tree is (None:
+    none of them): MMVit4 has the fused6 group; of the conv-encoder family,
+    mmformer's unused qkv leaves are zero."""
+    if "fused6_pos" in params:
+        return "MMVit4"
+    qkv = params.get("modality_stream", {}).get("qkv")
+    if "multimodal_decode_conv" not in params or qkv is None:
+        return None
+    return "MMVit2" if any(np.any(a != 0) for a in qkv.values()) else "mmformer"
+
+
+def _state_dict_model(keys):
+    """Which of the three models a port ``state_dict`` is (None: another)."""
+    if "fused6_pos" in keys:
+        return "MMVit4"
+    if "RGB_encoder.e1_c1.weight" not in keys:
+        return None
+    return "MMVit2" if "qkv_RGB.weight" in keys else "mmformer"
+
+
+def _check_model(path, found, modeltype):
+    if modeltype in _CONVERTERS and found is not None and found != modeltype:
+        raise ValueError(f"{path} holds {found} weights, not {modeltype}")
+
+
+def load_weights(path, modeltype="MMVit4"):
+    """A port state_dict for ``modeltype`` from a ``.pt`` file or a flattened
+    JAX ``.npz``, converted by that model's converter. Weights of another of
+    the ported models raise ``ValueError`` naming both."""
     path = Path(path)
-    if path.suffix == ".npz":
-        with np.load(path, allow_pickle=False) as z:
-            variables = unflatten_variables({k: z[k] for k in z.files})
-        return mmvit4_state_dict_from_variables(variables)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    if path.suffix != ".npz":
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        _check_model(path, _state_dict_model(sd), modeltype)
+        return sd
+    with np.load(path, allow_pickle=False) as z:
+        variables = unflatten_variables({k: z[k] for k in z.files})
+    _check_model(path, _npz_model(variables["params"]), modeltype)
+    if modeltype not in _CONVERTERS:
+        raise NotImplementedError(
+            f"no converter of JAX {modeltype} variables to the port; see ROADMAP.md")
+    return _CONVERTERS[modeltype](variables)
 
 
 @torch.no_grad()
@@ -91,7 +138,7 @@ def evaluate_run(cfg, weights=None, device="cuda"):
                          pallas_fused_blocks=cfg.pallas_fused_blocks,
                          decoder_lean=cfg.decoder_lean)
     if weights is not None:
-        model.load_state_dict(load_weights(weights), strict=True)
+        model.load_state_dict(load_weights(weights, cfg.modeltype), strict=True)
     bs = max(cfg.mini_batch_size, 8)
     jacks, f1s, seconds = per_image_metrics(
         model, data.images, data.masks, tsind, bs, device

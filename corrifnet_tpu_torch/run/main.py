@@ -91,16 +91,18 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
                      data_dirs=cfg.data_dirs)
 
     # transfertype (F2_MAIN.py:134-165): 'notr' re-initializes the 2-D convs
-    # with cfg.initialization, and MMVit4 has none, so its own initialization
-    # stands; 'yestr' warm-starts from cfg.transfer_checkpoint (the model
-    # stays as built when none is named, as in the JAX package); 'loratr'
-    # leaves the model as built
+    # with cfg.initialization, and MMVit4, MMVit2 and mmformer have none, so
+    # their own initialization stands; 'yestr' warm-starts from
+    # cfg.transfer_checkpoint, converted as cfg.modeltype (the model stays as
+    # built when none is named, as in the JAX package); 'loratr' leaves the
+    # model as built
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
                          pallas_fused_blocks=cfg.pallas_fused_blocks,
                          decoder_lean=cfg.decoder_lean)
     if cfg.transfertype == "yestr" and cfg.transfer_checkpoint:
-        model.load_state_dict(load_weights(cfg.transfer_checkpoint), strict=True)
+        model.load_state_dict(load_weights(cfg.transfer_checkpoint, cfg.modeltype),
+                              strict=True)
     state = init_state(model, cfg.optimizer_type)
 
     start_epoch, prior_history = 0, None

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time and profile the port's MMVit4 evaluation forward on one NVIDIA GPU.
+"""Time and profile the port's evaluation forward (MMVit4, MMVit2 or
+mmformer) on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10] [--fused]
-        [--lean none|true|false] [--out DIR]
+    python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10]
+        [--model MMVit4|MMVit2|mmformer] [--fused] [--lean none|true|false]
+        [--out DIR]
 
 At 224x224, bf16 compute, random weights from seed 0 (``--fused``: with
 ``pallas_fused_blocks``, the encoder bottlenecks through kernels K4a and K4c;
@@ -56,15 +58,17 @@ def _plain_attention_qkv(qkv, scale, rate=0.0, philox=None):
 # the values of --lean
 LEAN = {"none": None, "true": True, "false": False}
 
-# where each wrapper is called on the evaluation path
-_CALL_SITES = {
-    "relu_instancenorm": ("corrifnet_tpu_torch.nn.conv", ops.relu_instancenorm_plain),
-    "fused_attention_qkv": ("corrifnet_tpu_torch.nn.transformer", _plain_attention_qkv),
-    "correlation_fusion": ("corrifnet_tpu_torch.models.mmvit4",
-                           ops.correlation_fusion_plain),
-    "pointwise_conv_stats": ("corrifnet_tpu_torch.models.resnet3d", _plain_pointwise),
-    "conv3x3_fma_relu_stats": ("corrifnet_tpu_torch.models.resnet3d", _plain_conv3x3),
-}
+# (wrapper, the module that calls it on an evaluation path, its plain version)
+_CALL_SITES = [
+    ("relu_instancenorm", "corrifnet_tpu_torch.nn.conv", ops.relu_instancenorm_plain),
+    ("fused_attention_qkv", "corrifnet_tpu_torch.nn.transformer", _plain_attention_qkv),
+    ("correlation_fusion", "corrifnet_tpu_torch.models.mmvit4",
+     ops.correlation_fusion_plain),
+    ("correlation_fusion", "corrifnet_tpu_torch.models.mmvit2",
+     ops.correlation_fusion_plain),
+    ("pointwise_conv_stats", "corrifnet_tpu_torch.models.resnet3d", _plain_pointwise),
+    ("conv3x3_fma_relu_stats", "corrifnet_tpu_torch.models.resnet3d", _plain_conv3x3),
+]
 
 # kind: substrings of the kernel name, first match wins
 _KINDS = [
@@ -231,7 +235,7 @@ def plain_versions():
     """Route every kernel call site of the forward to the plain version;
     raise if a kernel launched all the same (a call site not in the table)."""
     saved = []
-    for name, (modname, plain) in _CALL_SITES.items():
+    for name, modname, plain in _CALL_SITES:
         mod = sys.modules[modname]
         saved.append((mod, name, getattr(mod, name)))
         setattr(mod, name, plain)
@@ -287,6 +291,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-forwards", type=int, default=3)
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer"), default="MMVit4",
+                    help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
     ap.add_argument("--lean", choices=sorted(LEAN), default="none",
@@ -302,10 +308,11 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
-                   f"pallas_fused_blocks {args.fused}, decoder_lean {LEAN[args.lean]}"]
+    lines = [card, f"torch {torch.__version__}, {args.model}, batch {args.batch}, "
+                   f"224x224, bf16, pallas_fused_blocks {args.fused}, "
+                   f"decoder_lean {LEAN[args.lean]}"]
 
-    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+    model = create_model(args.model, dtype=torch.bfloat16, device="cuda", seed=0,
                          pallas_fused_blocks=args.fused, decoder_lean=LEAN[args.lean])
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((args.batch, 3, 3, 224, 224), generator=gen, device="cuda")

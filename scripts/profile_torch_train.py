@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time and profile the port's MMVit4 training step on one NVIDIA GPU.
+"""Time and profile the port's training step (MMVit4, MMVit2 or mmformer) on
+one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10] [--fused]
-        [--lean none|true|false] [--out DIR]
+    python3 scripts/profile_torch_train.py [--batch 4] [--iters 10]
+        [--model MMVit4|MMVit2|mmformer] [--fused] [--lean none|true|false]
+        [--out DIR]
 
 At 224x224, bf16 compute over f32 parameters, transformer dropout 0.1,
-BatchNorm on batch statistics, Adam, random weights from seed 0 and a random
-batch that stays on the card (``--fused``: with ``pallas_fused_blocks``, the
+BatchNorm (MMVit4's) on batch statistics, Adam, random weights from seed 0
+and a random batch that stays on the card (``--fused``: with ``pallas_fused_blocks``, the
 encoder bottlenecks through kernels K4a-K4d, each a kind of its own below;
 ``--lean``: the config's ``decoder_lean``, none by default, which at batch 4
 is the lean decoder):
@@ -52,6 +54,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer"), default="MMVit4",
+                    help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
     ap.add_argument("--lean", choices=sorted(LEAN), default="none",
@@ -67,11 +71,11 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    lines = [card, f"torch {torch.__version__}, batch {args.batch}, 224x224, bf16, "
-                   f"dropout 0.1, Adam, pallas_fused_blocks {args.fused}, "
-                   f"decoder_lean {LEAN[args.lean]}"]
+    lines = [card, f"torch {torch.__version__}, {args.model}, batch {args.batch}, "
+                   f"224x224, bf16, dropout 0.1, Adam, pallas_fused_blocks "
+                   f"{args.fused}, decoder_lean {LEAN[args.lean]}"]
 
-    model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+    model = create_model(args.model, dtype=torch.bfloat16, device="cuda", seed=0,
                          pallas_fused_blocks=args.fused, decoder_lean=LEAN[args.lean])
     model.set_dropout_rng(DropoutRng(0, "cuda"))
     step = make_train_step(init_state(model, "Adam"))

@@ -755,3 +755,136 @@ def test_b4_training_step_launches_k3_per_decoder_setting(cuda, lean, k3):
     torch.cuda.synchronize()
     assert ops.relu_instancenorm.launches == k3
     assert ops.relu_instancenorm_bwd.launches == k3
+
+
+# ---------------------------------------------------------------- MMVit2, mmformer
+
+# the K3 volumes of MMVit2's and mmformer's conv encoders at B=4 (cluster and
+# grid regimes; the largest in two rounds at B=8) and their largest RFM volume
+_K3_ENCODER_SHAPES = [(4, 3, 224, 224, 8), (4, 2, 112, 112, 16), (4, 1, 56, 56, 32),
+                      (4, 1, 28, 28, 64), (4, 1, 14, 14, 64), (8, 3, 224, 224, 24)]
+
+
+@pytest.mark.parametrize("shape", _K3_ENCODER_SHAPES)
+def test_relu_instancenorm_at_the_conv_encoder_shapes(cuda, shape):
+    """K3 and K3b at the conv-encoder family's volumes, under autograd, in
+    bf16: one launch each, within 2 bf16 ulps of the plain versions run in
+    f32 on the same inputs plus the f32 bound; in f32 within 1e-5 + 1e-4
+    rel; a second run and runs queued on two streams give the same bits."""
+    from corrifnet_tpu_torch.ops import instancenorm as t_in
+
+    x = _randn(shape, cuda, shift=0.2)
+    g = _randn(shape, cuda)
+    a = x.clone().requires_grad_()
+    y = ops.relu_instancenorm(a)
+    y.backward(g)
+    want = ops.relu_instancenorm_plain(x)
+    assert bool(((y - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+    ref = ops.relu_instancenorm_backward_plain(x, g)
+    assert bool(((a.grad - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all())
+    del want, ref
+    x16, g16 = x.bfloat16(), g.bfloat16()
+    before = ops.relu_instancenorm.launches, ops.relu_instancenorm_bwd.launches
+    a16 = x16.clone().requires_grad_()
+    y16 = ops.relu_instancenorm(a16)
+    y16.backward(g16)
+    torch.cuda.synchronize()
+    assert (ops.relu_instancenorm.launches, ops.relu_instancenorm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, ref in ((y16, ops.relu_instancenorm_plain(x16.float())),
+                     (a16.grad, ops.relu_instancenorm_backward_plain(x16.float(),
+                                                                     g16.float()))):
+        bound = 2 * _bf16_ulp(ref) + 1e-5 + 1e-4 * ref.abs()
+        assert bool(((got.float() - ref).abs() <= bound).all())
+    _, mean, rstd = t_in._launch(x16, 1e-5)
+    lone = (y16.detach(), ops.relu_instancenorm_bwd(x16, g16, mean, rstd))
+    assert torch.equal(lone[1], a16.grad)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append((t_in._launch(x16, 1e-5)[0],
+                             ops.relu_instancenorm_bwd(x16, g16, mean, rstd)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, lone[0]) and torch.equal(q, lone[1]) for p, q in outs)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b", [4, 8])
+def test_attention_at_n1536(cuda, b, rate):
+    """K2f and K2b at the multimodal transformer of MMVit2 and mmformer
+    (3 token groups, N = 1536), in bf16 on the strided views of a (B, N, 3,
+    H, 64) projection as the model launches them: within 2 bf16 ulps of the
+    largest entry of the plain versions that round where the kernels do and
+    within 2e-2 of pure f32, in f32 within 2e-5; the keep mask of the
+    kernels' device functions at n = 1536 equals ``philox_keep_mask``."""
+    from corrifnet_tpu_torch.ops import attention as t_attn
+
+    h, n = 8, 1536
+    qkv = _randn((b, n, 3, h, 64), cuda)
+    g = _randn((b, n, h, 64), cuda).permute(0, 2, 1, 3)
+    philox = (20260, 17)
+    keep = None
+    if rate > 0:
+        keep = ops.philox_keep_mask(*philox, b * h, n, rate, "cuda").view(b, h, n, n)
+        for layout in ("tile", "rows", "cols"):
+            assert torch.equal(t_attn.kernel_keep_mask(*philox, 0, 2, n, rate, layout=layout),
+                               keep.view(b * h, n, n)[:2])
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out = ops.fused_attention_qkv(qkv, 0.125, rate, philox)
+    exact = ops.attention_plain(q, k, v, 0.125, rate, keep)
+    assert (out - exact).abs().max().item() <= 2e-5
+    q16, k16, v16 = qkv.bfloat16().permute(2, 0, 3, 1, 4).unbind(0)
+    g16 = g.bfloat16()
+    out16, lse = t_attn._launch_fwd(q16, k16, v16, 0.125, rate, *philox, True)
+    rounded = ops.attention_plain(q16, k16, v16, 0.125, rate, keep, kernel_rounding=True)
+    assert _ulps_of_max(out16, rounded) <= 2.0
+    exact = ops.attention_plain(q16.float(), k16.float(), v16.float(), 0.125, rate, keep)
+    assert (out16.float() - exact).abs().max().item() <= 2e-2
+    del rounded, exact
+    grads = ops.fused_attention_bwd(q16, k16, v16, out16, lse, g16, 0.125, rate, philox)
+    rounded = ops.attention_backward_plain(q16, k16, v16, out16, lse, g16, 0.125, rate,
+                                           keep, kernel_rounding=True)
+    assert all(_ulps_of_max(a, r) <= 2.0 for a, r in zip(grads, rounded))
+
+
+@pytest.mark.parametrize("name", ["MMVit2", "mmformer"])
+def test_conv_family_on_the_card_matches_the_cpu(cuda, name):
+    """The whole model at B=1 on a 64x64 input in f32: the kernels on the
+    card against the plain versions on the CPU, same weights, within 1e-4
+    or twice the CPU's own change under a 1e-6 change of the input (MMVit2's
+    saturated correlation softmaxes amplify rounding); a bf16 forward at B=2
+    and a training forward and backward launch the model's kernels: K1f 1
+    (mmformer 0), K2f 4, K3 57 (the encoders' 42, the RFM blocks' 15; the
+    lean decoder at B <= 4), and as many backwards."""
+    from corrifnet_tpu_torch.models import create_model
+
+    cpu = create_model(name, dtype=torch.float32, device="cpu", seed=0)
+    x = torch.randn((1, 3, 3, 64, 64), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = cpu(x)
+        witness = (cpu(x * (1 + 1e-6)) - want).abs().max().item()
+        got = copy.deepcopy(cpu).to("cuda")(x.to("cuda")).cpu()
+    assert (got - want).abs().max().item() <= max(1e-4, 2 * witness)
+
+    k1 = int(name == "MMVit2")
+    model = create_model(name, dtype=torch.bfloat16, device="cuda", transformer_dropout=0.0)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    with torch.no_grad():
+        out = model(torch.zeros(2, 3, 3, 64, 64, device="cuda"))
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3, 1, 224, 224) and bool(torch.isfinite(out).all())
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts.update(correlation_fusion=k1, fused_attention=4, relu_instancenorm=57)
+    assert {n: w.launches for n, w in ops.KERNELS.items()} == counts
+    model.train()
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    model(torch.randn(2, 3, 3, 64, 64, device="cuda")).float().mean().backward()
+    torch.cuda.synchronize()
+    counts.update(correlation_fusion_bwd=k1, fused_attention_bwd=4, relu_instancenorm_bwd=57)
+    assert {n: w.launches for n, w in ops.KERNELS.items()} == counts

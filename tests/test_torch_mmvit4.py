@@ -68,7 +68,7 @@ def test_create_model_is_seeded_and_full_size():
 
 def test_create_model_rejects_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("MMVit2")
+        create_model("RFNet")
 
 
 def test_whole_model_matches_jax(port_model_and_input):
@@ -128,7 +128,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     import corrifnet_tpu_torch
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
-                "models.decoder", "models.jax_import", "models.mmvit4",
+                "models.decoder", "models.jax_import", "models.mmformer",
+                "models.mmvit2", "models.mmvit4",
                 "models.registry", "models.resnet3d", "nn", "nn.conv",
                 "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.resize",
                 "nn.transformer", "ops", "ops.attention", "ops.build",
