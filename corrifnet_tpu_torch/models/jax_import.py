@@ -1,4 +1,4 @@
-"""JAX MMVit4, MMVit2 and mmformer variables and gradients -> the port's names.
+"""JAX variables and gradients of the ported models -> the port's names.
 
 ``mmvit4_state_dict_from_variables`` is the inverse of
 ``corrifnet_tpu.models.torch_import.mmvit4_variables_from_state_dict``. It
@@ -14,10 +14,13 @@ the initial one. ``mmvit4_named_gradients`` maps a JAX gradient tree (the
 gradients compare tensor by tensor under ``named_parameters()``.
 ``mmvit2_state_dict_from_variables`` and ``mmvit2_named_gradients`` do the
 same for MMVit2 and mmformer, inverting
-``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``.
+``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``;
+``rfnet_*`` and ``robustseg_*`` invert ``rfnet_variables_from_state_dict``
+and ``robustseg_variables_from_state_dict``.
 
 Layouts (JAX -> PyTorch):
-  * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW);
+  * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW), and 2-D ones
+    (KH, KW, I, O) -> (O, I, KH, KW);
   * 1x1x1 convs the JAX package runs as Dense layers, (I, O) -> (O, I, 1, 1, 1);
   * Linear kernels (I, O) -> (O, I);
   * BatchNorm {scale, bias} + {mean, var} -> weight, bias, running_mean,
@@ -39,6 +42,10 @@ __all__ = [
     "mmvit2_state_dict_from_variables",
     "mmvit4_named_gradients",
     "mmvit4_state_dict_from_variables",
+    "rfnet_named_gradients",
+    "rfnet_state_dict_from_variables",
+    "robustseg_named_gradients",
+    "robustseg_state_dict_from_variables",
     "unflatten_variables",
     "unpack_stage1_variables",
 ]
@@ -57,7 +64,8 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv_weight(kernel):
-    return _t(np.transpose(np.asarray(kernel), (4, 3, 0, 1, 2)))
+    k = np.asarray(kernel)
+    return _t(np.transpose(k, (4, 3, 0, 1, 2) if k.ndim == 5 else (3, 2, 0, 1)))
 
 
 def _dense_as_conv(kernel):
@@ -270,6 +278,97 @@ def mmvit2_named_gradients(grads, mmformer: bool = False) -> Dict[str, torch.Ten
     parameter name: gradient}, as ``mmvit4_named_gradients``; mmformer's
     ``qkv`` gradients are zero in JAX and have no parameter in the port."""
     return mmvit2_state_dict_from_variables({"params": grads}, mmformer)
+
+
+def _rf_encoder(sd, prefix, params):
+    for s in range(1, 5):
+        for c in range(1, 4):
+            _put(sd, f"{prefix}.e{s}_c{c}.conv", params[f"e{s}_c{c}"]["conv"], _conv_weight)
+
+
+def rfnet_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX RFNet ``variables`` -> port state_dict: the ``encoders`` modality
+    axis unstacked into ``{m}_encoder``, the generators' and fusions' convs
+    under the reference's Sequential indices."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for mi, m in enumerate(_MODALITIES):
+        _rf_encoder(sd, f"{m}_encoder", _select(params["encoders"], mi))
+    d = "decoder_fuse"
+    for i in range(1, 5):
+        prm, key = params[f"prm_generator{i}"], f"{d}.prm_generator{i}"
+        for j in range(3):
+            _put(sd, f"{key}.embedding_layer.{j}.conv", prm[f"emb{j}"]["conv"], _conv_weight)
+        _put(sd, f"{key}.prm_layer.0.conv", prm["prm0"]["conv"], _conv_weight)
+        _put(sd, f"{key}.prm_layer.1", prm["prm1"], _conv_weight)
+    for i in range(1, 5):
+        rfm, key = params[f"RFM{i}"], f"{d}.RFM{i}"
+        _put(sd, f"{key}.modal_fusion.weight_layer.0", rfm["mf_w0"], _conv_weight)
+        _put(sd, f"{key}.modal_fusion.weight_layer.2", rfm["mf_w1"], _conv_weight)
+        for j in range(3):
+            _put(sd, f"{key}.region_fusion.fusion_layer.{j}.conv", rfm[f"rf{j}"]["conv"],
+                 _conv_weight)
+            _put(sd, f"{key}.short_cut.{j}.conv", rfm[f"sc{j}"]["conv"], _conv_weight)
+    for lvl in (3, 2, 1):
+        for name in (f"d{lvl}_c1", f"d{lvl}_c2", f"d{lvl}_out"):
+            _put(sd, f"{d}.{name}.conv", params[name]["conv"], _conv_weight)
+    _put(sd, f"{d}.seg_layer", params["seg_layer"], _conv_weight)
+    return sd
+
+
+def rfnet_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of RFNet's ``params`` -> {port parameter name:
+    gradient}, as ``mmvit4_named_gradients``."""
+    return rfnet_state_dict_from_variables({"params": grads})
+
+
+def _basic(sd, key, tree):
+    """A BasicConv2d's bias-free kernel."""
+    _put(sd, f"{key}.conv", tree["conv"], _conv_weight)
+
+
+def robustseg_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX RobustMseg ``variables`` -> port state_dict: the ``style_enc``
+    and ``content_enc`` modality axes unstacked into the reference's
+    ``style_enc_list.{m}`` and ``content_enc_list.{m}``, the reconstruction
+    decoders (whose output nothing reads) kept."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for m in range(3):
+        style, key = _select(params["style_enc"], m), f"style_enc_list.{m}"
+        for i in range(5):
+            _basic(sd, f"{key}.encoder.{i}", style[f"enc{i}"])
+        _basic(sd, f"{key}.final", style["final"])
+        content = _select(params["content_enc"], m)
+        for lvl in range(1, 5):
+            for c in range(1, 4):
+                _basic(sd, f"content_enc_list.{m}.e{lvl}c{c}", content[f"e{lvl}c{c}"])
+    for lvl in range(4):
+        _basic(sd, f"content_attn.{lvl}", params[f"content_attn{lvl}"])
+        _basic(sd, f"content_share.{lvl}", params[f"content_share{lvl}"])
+    for i in range(3):
+        rec, key = params[f"recon{i}"], f"recon_decoders.{i}"
+        for name in ("l1", "l2", "l_mu", "l_sigma"):
+            sd[f"{key}.mlp.{name}.weight"] = _t(np.asarray(rec["mlp"][name]["kernel"]).T)
+            sd[f"{key}.mlp.{name}.bias"] = _t(rec["mlp"][name]["bias"])
+        for j in range(4):
+            for c in (1, 2):
+                _basic(sd, f"{key}.res_blocks.{j}.conv{c}", rec[f"res{j}_conv{c}"])
+        for j in range(3):
+            _basic(sd, f"{key}.up_blocks.{j}.1", rec[f"up{j}"])
+        _basic(sd, f"{key}.final", rec["final"])
+    seg = params["seg_decoder"]
+    for g in ("c3", "c2", "c1"):
+        for i in (1, 2, 3):
+            _basic(sd, f"seg_decoder.{g}_{i}", seg[f"{g}_{i}"])
+    _basic(sd, "seg_decoder.final", seg["final"])
+    return sd
+
+
+def robustseg_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of RobustMseg's ``params`` -> {port parameter
+    name: gradient}, as ``mmvit4_named_gradients``."""
+    return robustseg_state_dict_from_variables({"params": grads})
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

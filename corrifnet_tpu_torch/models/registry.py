@@ -1,12 +1,13 @@
 """Model registry of the port, keyed by the reference's ``modeltype`` strings.
 
 Counterpart of ``corrifnet_tpu/models/registry.py``: a table of specs (name,
-factory, input kind, the model options it takes). MMVit4 (CorrIFNet), MMVit2
-and mmformer are ported; every other model of the JAX package's zoo is still
-to be ported (see ROADMAP.md). A factory takes the compute ``dtype``,
-``transformer_dropout`` and the options its spec names as keywords and
-returns a module with ``compute_dtype``, ``reset_parameters(generator)`` and
-``set_dropout_rng(rng)``, as ``MMVit4`` has. An option set for a model that
+factory, input kind, the model options it takes). MMVit4 (CorrIFNet), MMVit2,
+mmformer, RFNet and RobustMseg are ported; every other model of the JAX
+package's zoo is still to be ported (see ROADMAP.md). A factory takes the
+compute ``dtype``, ``transformer_dropout`` and the options its spec names as
+keywords and returns a module with ``compute_dtype``,
+``reset_parameters(generator)`` and ``set_dropout_rng(rng)``, as ``MMVit4``
+has. An option set for a model that
 does not take it has no effect, as in the JAX package's ``_build_model``
 (``corrifnet_tpu/run/main.py:48-67``), and ``create_model`` prints one line
 naming it.
@@ -22,6 +23,8 @@ from torch import nn
 
 from corrifnet_tpu_torch.models.mmvit2 import MMFormer, MMVit2
 from corrifnet_tpu_torch.models.mmvit4 import MMVit4
+from corrifnet_tpu_torch.models.rfnet import RFNet
+from corrifnet_tpu_torch.models.robustseg import RobustMseg
 
 __all__ = ["ModelSpec", "create_model", "get_spec"]
 
@@ -42,6 +45,8 @@ _REGISTRY: Dict[str, ModelSpec] = {
     "MMVit4": ModelSpec("MMVit4", MMVit4, "5d"),
     "MMVit2": ModelSpec("MMVit2", MMVit2, "5d", options=()),
     "mmformer": ModelSpec("mmformer", MMFormer, "5d", options=()),
+    "RFNet": ModelSpec("RFNet", RFNet, "5d", options=()),
+    "RobustMseg": ModelSpec("RobustMseg", RobustMseg, "5d", options=()),
 }
 
 
@@ -64,7 +69,8 @@ def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,
     convolution kernels (same parameters, same ``state_dict``);
     ``decoder_lean`` chooses the decoder's lean backward (None: at batch <=
     4, the JAX package's rule). The two options are MMVit4's: MMVit2 and
-    mmformer run their decoder by the batch rule and take neither."""
+    mmformer run their decoder by the batch rule, and no other model takes
+    either."""
     spec = get_spec(name)
     given = {"pallas_fused_blocks": pallas_fused_blocks, "decoder_lean": decoder_lean}
     inert = [f"{k}={v!r}" for k, v in given.items()

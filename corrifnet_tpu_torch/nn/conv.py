@@ -23,35 +23,49 @@ from torch import nn
 from corrifnet_tpu_torch.nn.depthfuse import coarse_input, expand_conv
 from corrifnet_tpu_torch.nn.init import fan_in, kaiming_normal_, torch_default_
 from corrifnet_tpu_torch.nn.norm import InstanceNorm
+from corrifnet_tpu_torch.nn.pad import replicate_pad
 from corrifnet_tpu_torch.ops import relu_instancenorm
 
 __all__ = ["Conv", "Dense", "GeneralConv3d", "FusionPrenorm", "EarlyFusionBlock"]
 
 
-def _triple(v):
-    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+def _tuple(v, n):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+
+_KERNEL_INITS = ("kaiming_normal", "torch_default")
 
 
 class Conv(nn.Module):
-    """Conv3d, kaiming-normal weights (MMVit4 re-initializes every Conv3d,
-    mmvit4.py:437-439) and PyTorch's default bias. ``padding_mode`` is
-    'zeros' or 'replicate'."""
+    """Conv3d (``dims=3``) or Conv2d (``dims=2``, the JAX ``Conv`` being
+    rank-generic) with PyTorch's default bias. ``kernel_init``:
+    'kaiming_normal' (MMVit4 re-initializes every Conv3d,
+    mmvit4.py:437-439, and RFNet's convs are built so) or 'torch_default',
+    U(+-1/sqrt(fan_in)) (RobustMseg's). ``padding_mode`` is 'zeros' or
+    'replicate'."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, bias=True, padding_mode="zeros"):
+                 padding=0, bias=True, padding_mode="zeros", dims=3,
+                 kernel_init="kaiming_normal"):
         super().__init__()
         if padding_mode not in ("zeros", "replicate"):
             raise ValueError(f"padding_mode {padding_mode!r}")
-        self.stride = _triple(stride)
-        self.padding = _triple(padding)
+        if dims not in (2, 3) or kernel_init not in _KERNEL_INITS:
+            raise ValueError(f"dims {dims!r}, kernel_init {kernel_init!r}")
+        self.stride = _tuple(stride, dims)
+        self.padding = _tuple(padding, dims)
         self.padding_mode = padding_mode
+        self.kernel_init = kernel_init
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, *_triple(kernel_size))
+            torch.empty(out_channels, in_channels, *_tuple(kernel_size, dims))
         )
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, generator):
-        kaiming_normal_(self.weight, generator)
+        if self.kernel_init == "kaiming_normal":
+            kaiming_normal_(self.weight, generator)
+        else:
+            torch_default_(self.weight, fan_in(self.weight), generator)
         if self.bias is not None:
             torch_default_(self.bias, fan_in(self.weight), generator)
 
@@ -72,9 +86,8 @@ class Conv(nn.Module):
         padded and laid out (the lean decoder rebuilds these in the
         backward instead of storing them), and the batch size."""
         if depth_fuse is None:
-            if self.padding_mode == "replicate" and any(self.padding):
-                pd, ph, pw = self.padding
-                x = F.pad(x, (pw, pw, ph, ph, pd, pd), mode="replicate")
+            if self.padding_mode == "replicate":
+                x = replicate_pad(x, [(p, p) for p in self.padding])
             return (x,), x.shape[0]
         if (self.weight.shape[2] != 3 or self.padding[0] != 1
                 or self.stride != (1, 1, 1)):
@@ -91,7 +104,8 @@ class Conv(nn.Module):
         w, bias = self.weight.to(dt), self._bias(dt)
         if depth_fuse is None:
             padding = 0 if self.padding_mode == "replicate" else self.padding
-            return F.conv3d(parts[0], w, bias, self.stride, padding)
+            conv = F.conv3d if w.dim() == 5 else F.conv2d
+            return conv(parts[0], w, bias, self.stride, padding)
         kind, dst_d = depth_fuse
         if kind == "linear":
             return expand_conv(parts, [w], ["linear"], batch, dst_d,
@@ -130,17 +144,32 @@ class Dense(nn.Module):
 
 
 class GeneralConv3d(nn.Module):
-    """conv3d -> ReLU -> InstanceNorm (general_conv3d_prenorm, activation
-    before norm, mmvit4.py:29-45). The epilogue is kernel K3."""
+    """conv3d, activation and InstanceNorm, as the JAX module orders them:
+    ``order='act_norm'`` with ``act='relu'`` is general_conv3d_prenorm
+    (activation before norm, mmvit4.py:29-45), whose epilogue is kernel K3;
+    ``order='norm_act'`` with ``act='lrelu'`` is RFNet's general_conv3d (the
+    plain InstanceNorm, then LeakyReLU(0.2), RFNet.py:18-33)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=1, padding_mode="zeros"):
+                 padding=1, padding_mode="zeros", order="act_norm", act="relu"):
         super().__init__()
+        if order not in ("act_norm", "norm_act") or act not in ("relu", "lrelu"):
+            raise ValueError(f"order {order!r}, act {act!r}")
+        self.order, self.act = order, act
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
                          padding, padding_mode=padding_mode)
+        self.norm = InstanceNorm()
+
+    def _activation(self, y):
+        return torch.relu(y) if self.act == "relu" else F.leaky_relu(y, 0.2)
 
     def forward(self, x, depth_fuse=None):
-        y = self.conv(x, depth_fuse).permute(0, 2, 3, 4, 1).contiguous()  # channels-last
+        y = self.conv(x, depth_fuse)
+        if self.order == "norm_act":
+            return self._activation(self.norm(y))
+        if self.act == "lrelu":
+            return self.norm(self._activation(y))
+        y = y.permute(0, 2, 3, 4, 1).contiguous()  # channels-last
         return relu_instancenorm(y).permute(0, 4, 1, 2, 3)
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from corrifnet_tpu_torch.nn.pad import replicate_pad
 from corrifnet_tpu_torch.nn.resize import _linear_matrix
 
 __all__ = ["coarse_input", "depth_expand", "expand_conv", "fused_resize_conv",
@@ -94,13 +95,13 @@ def _expansion(blocks, dst_d, pad_mode, dtype, device):
 
 def coarse_input(x, padding, pad_mode):
     """The 2-D conv's input: x (B, C, S, H, W) as B·S channels-last images,
-    replicate-padded in H and W where the conv asks for it (PyTorch's CUDA
-    padding returns a contiguous NCHW tensor: made channels-last after)."""
+    replicate-padded in H and W where the conv asks for it (``replicate_pad``
+    returns a contiguous NCHW tensor: made channels-last after)."""
     b, c, s, h, w = x.shape
     x2 = x.transpose(1, 2).reshape(b * s, c, h, w)
     _, ph, pw = padding
     if pad_mode == "replicate" and (ph or pw):
-        x2 = F.pad(x2, (pw, pw, ph, ph), mode="replicate")
+        x2 = replicate_pad(x2, [(ph, ph), (pw, pw)])
     return x2.contiguous(memory_format=torch.channels_last)
 
 

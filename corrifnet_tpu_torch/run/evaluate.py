@@ -8,7 +8,7 @@ modality channel 0 -> mean and std.
 
 Weights: ``--weights`` takes a ``.npz`` of the flattened JAX variable tree
 (``/``-joined keys, e.g. ``params/encoders/conv6/kernel``) of the config's
-``modeltype`` (MMVit4, MMVit2 or mmformer), converted by
+``modeltype`` (MMVit4, MMVit2, mmformer, RFNet or RobustMseg), converted by
 ``models.jax_import``, or a ``.pt`` port ``state_dict``. Without it the
 model is initialized from ``cfg.seed``.
 
@@ -33,8 +33,11 @@ from corrifnet_tpu_torch.models import (
     create_model,
     mmvit2_state_dict_from_variables,
     mmvit4_state_dict_from_variables,
+    rfnet_state_dict_from_variables,
+    robustseg_state_dict_from_variables,
 )
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
+from corrifnet_tpu_torch.utils.determinism import deterministic
 
 __all__ = ["compute_dtype", "evaluate_run", "load_weights", "main",
            "per_image_metrics"]
@@ -52,15 +55,22 @@ _CONVERTERS = {
     "MMVit4": mmvit4_state_dict_from_variables,
     "MMVit2": lambda v: mmvit2_state_dict_from_variables(v, mmformer=False),
     "mmformer": lambda v: mmvit2_state_dict_from_variables(v, mmformer=True),
+    "RFNet": rfnet_state_dict_from_variables,
+    "RobustMseg": robustseg_state_dict_from_variables,
 }
 
 
 def _npz_model(params):
-    """Which of MMVit4, MMVit2 and mmformer a JAX ``params`` tree is (None:
-    none of them): MMVit4 has the fused6 group; of the conv-encoder family,
-    mmformer's unused qkv leaves are zero."""
+    """Which of the ported models a JAX ``params`` tree is (None: none of
+    them): MMVit4 has the fused6 group, RFNet the region map generators,
+    RobustMseg the content encoders; of the conv-encoder family, mmformer's
+    unused qkv leaves are zero."""
     if "fused6_pos" in params:
         return "MMVit4"
+    if "prm_generator4" in params:
+        return "RFNet"
+    if "content_enc" in params:
+        return "RobustMseg"
     qkv = params.get("modality_stream", {}).get("qkv")
     if "multimodal_decode_conv" not in params or qkv is None:
         return None
@@ -68,9 +78,13 @@ def _npz_model(params):
 
 
 def _state_dict_model(keys):
-    """Which of the three models a port ``state_dict`` is (None: another)."""
+    """Which of the ported models a port ``state_dict`` is (None: another)."""
     if "fused6_pos" in keys:
         return "MMVit4"
+    if "decoder_fuse.prm_generator4.prm_layer.1.weight" in keys:
+        return "RFNet"
+    if "content_enc_list.0.e1c1.conv.weight" in keys:
+        return "RobustMseg"
     if "RGB_encoder.e1_c1.weight" not in keys:
         return None
     return "MMVit2" if "qkv_RGB.weight" in keys else "mmformer"
@@ -122,8 +136,10 @@ def per_image_metrics(model, images, masks, indices, batch_size, device):
     return np.concatenate(jacks), np.concatenate(f1s), seconds
 
 
+@deterministic()
 def evaluate_run(cfg, weights=None, device="cuda"):
-    """Evaluate ``cfg.modeltype`` over ``cfg``'s test fold on ``device``.
+    """Evaluate ``cfg.modeltype`` over ``cfg``'s test fold on ``device``,
+    under ``utils.determinism.deterministic()``, as a training run.
 
     ``device="cuda"`` runs the kernels; with no GPU that raises, it never
     falls back to the CPU. Returns the metric means and stds, the image

@@ -32,6 +32,12 @@ the config fields ``config.check_supported`` names.
 ``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
 the fused convolution kernels; so is ``decoder_lean`` (None: the lean decoder
 backward at batch <= 4, as the JAX package).
+
+A run repeats its bits on every device, as the JAX package's does: it runs
+under ``utils.determinism.deterministic()`` (PyTorch's deterministic
+algorithms, cuDNN's deterministic algorithms without benchmarking), which
+raises at any op without a deterministic implementation, and the caller's
+settings come back when it returns.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from corrifnet_tpu_torch.config import ExperimentConfig, check_supported, load_c
 from corrifnet_tpu_torch.data import cross_val, load_dstl
 from corrifnet_tpu_torch.data.dataset import DeviceDataset
 from corrifnet_tpu_torch.models import create_model
+from corrifnet_tpu_torch.nn.init import apply_reference_init_scheme
 from corrifnet_tpu_torch.run.evaluate import compute_dtype, load_weights
 from corrifnet_tpu_torch.run.segplot import segplot
 from corrifnet_tpu_torch.train import (
@@ -58,6 +65,7 @@ from corrifnet_tpu_torch.train import (
     train_model,
 )
 from corrifnet_tpu_torch.train.loop import _wire_cast_enabled
+from corrifnet_tpu_torch.utils.determinism import deterministic
 from corrifnet_tpu_torch.utils.logfiles import RunLogs
 
 __all__ = ["run_experiment", "main"]
@@ -66,6 +74,7 @@ _CURVES = {"train_loss": "trainFile.txt", "train_jac": "trainaccFile.txt",
            "val_loss": "valFile.txt", "val_jac": "valaccFile.txt"}
 
 
+@deterministic()
 def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
                    device="cuda", resume_dir=None, deadline_s=None):
     """One experiment (F2_MAIN.py:45-313) on ``device``.
@@ -90,17 +99,19 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
                      synthetic_seed=cfg.synthetic_seed,
                      data_dirs=cfg.data_dirs)
 
-    # transfertype (F2_MAIN.py:134-165): 'notr' re-initializes the 2-D convs
-    # with cfg.initialization, and MMVit4, MMVit2 and mmformer have none, so
-    # their own initialization stands; 'yestr' warm-starts from
-    # cfg.transfer_checkpoint, converted as cfg.modeltype (the model stays as
-    # built when none is named, as in the JAX package); 'loratr' leaves the
-    # model as built
+    # transfertype (F2_MAIN.py:134-165): 'notr' re-initializes the 2-D conv
+    # kernels the JAX package does with cfg.initialization (of the ported
+    # models, RobustMseg's 54 outside its per-modality encoders), from a
+    # stream of its own; 'yestr' warm-starts from cfg.transfer_checkpoint,
+    # converted as cfg.modeltype (the model stays as built when none is named,
+    # as in the JAX package); 'loratr' leaves the model as built
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
                          pallas_fused_blocks=cfg.pallas_fused_blocks,
                          decoder_lean=cfg.decoder_lean)
-    if cfg.transfertype == "yestr" and cfg.transfer_checkpoint:
+    if cfg.transfertype == "notr":
+        apply_reference_init_scheme(model, cfg.initialization, scheme_generator(cfg.seed))
+    elif cfg.transfertype == "yestr" and cfg.transfer_checkpoint:
         model.load_state_dict(load_weights(cfg.transfer_checkpoint, cfg.modeltype),
                               strict=True)
     state = init_state(model, cfg.optimizer_type)
@@ -182,6 +193,13 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
         "train_steps": state.step,
         "resident_bytes": 0 if device_data is None else device_data.nbytes,
     }
+
+
+def scheme_generator(seed: int) -> torch.Generator:
+    """The generator of the ``notr`` re-initialization: a stream of its own,
+    made from the config's seed and independent of the weights' own."""
+    state = np.random.SeedSequence([int(seed), 1]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
 
 
 def _maybe_device_dataset(model, images, masks, vlind, tsind, device):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time and profile the port's evaluation forward (MMVit4, MMVit2 or
-mmformer) on one NVIDIA GPU.
+"""Time and profile the port's evaluation forward (MMVit4, MMVit2,
+mmformer, RFNet or RobustMseg) on one NVIDIA GPU, under the entry points'
+``deterministic()`` scope.
 
     python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10]
-        [--model MMVit4|MMVit2|mmformer] [--fused] [--lean none|true|false]
+        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg] [--fused] [--lean none|true|false]
         [--out DIR]
 
 At 224x224, bf16 compute, random weights from seed 0 (``--fused``: with
@@ -39,6 +40,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
+from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 
 
 
@@ -169,12 +171,16 @@ def kind_of(name):
 def scoped_layout_copies():
     """The model with profiler scopes around what gets a row of its own
     (the same computation): ``GeneralConv3d.forward``'s channels-last copy
-    (``K3_COPY_SCOPE``), a lean stage's conv input (``LEAN_INPUT_SCOPE`` in
+    before K3 (``K3_COPY_SCOPE``), a lean stage's conv input (``LEAN_INPUT_SCOPE`` in
     the forward, ``LEAN_REBUILD_SCOPE`` when the backward rebuilds it) and
     the fused convs' depth expansion (``EXPANSION_SCOPE``)."""
     from corrifnet_tpu_torch.nn import conv, depthfuse, leandec
 
+    general_forward = conv.GeneralConv3d.forward
+
     def forward(self, x, depth_fuse=None):
+        if (self.order, self.act) != ("act_norm", "relu"):  # no K3 (RFNet's)
+            return general_forward(self, x, depth_fuse)
         y = self.conv(x, depth_fuse)
         with torch.profiler.record_function(K3_COPY_SCOPE):
             y = y.permute(0, 2, 3, 4, 1).contiguous()
@@ -285,13 +291,15 @@ def busy_share(trace_path, wall_us):
     return busy / wall_us, busy, by_name
 
 
+@deterministic()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-forwards", type=int, default=3)
-    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer"), default="MMVit4",
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg"),
+                    default="MMVit4",
                     help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time and profile the port's training step (MMVit4, MMVit2 or mmformer) on
-one NVIDIA GPU.
+"""Time and profile the port's training step (MMVit4, MMVit2, mmformer,
+RFNet or RobustMseg) on one NVIDIA GPU, under the entry points'
+``deterministic()`` scope.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--iters 10]
-        [--model MMVit4|MMVit2|mmformer] [--fused] [--lean none|true|false]
+        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg] [--fused] [--lean none|true|false]
         [--out DIR]
 
 At 224x224, bf16 compute over f32 parameters, transformer dropout 0.1,
@@ -45,16 +46,19 @@ from profile_torch_eval import (LEAN, busy_share, device_time_by_kind,  # noqa: 
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
+from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 from corrifnet_tpu_torch.nn import DropoutRng  # noqa: E402
 from corrifnet_tpu_torch.train import init_state, make_train_step  # noqa: E402
 
+@deterministic()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
-    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer"), default="MMVit4",
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg"),
+                    default="MMVit4",
                     help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")

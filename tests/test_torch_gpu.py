@@ -888,3 +888,66 @@ def test_conv_family_on_the_card_matches_the_cpu(cuda, name):
     torch.cuda.synchronize()
     counts.update(correlation_fusion_bwd=k1, fused_attention_bwd=4, relu_instancenorm_bwd=57)
     assert {n: w.launches for n, w in ops.KERNELS.items()} == counts
+
+
+@pytest.mark.parametrize("name", ["RFNet", "RobustMseg"])
+def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
+    """RFNet and RobustMseg at B=1 on a 64x64 input in f32 (RFNet's cascade
+    runs at its fixed 16^3-128^3 volumes whatever the input), the card
+    against the CPU, same weights: within 1e-4 or twice the CPU's own change
+    under a 1e-6 change of the input; a bf16 forward and a training step at
+    B=2 launch none of the port's kernels (the JAX package runs none on
+    these models)."""
+    from corrifnet_tpu_torch.models import create_model
+    from corrifnet_tpu_torch.nn import DropoutRng
+
+    cpu = create_model(name, dtype=torch.float32, device="cpu", seed=0)
+    x = torch.randn((1, 3, 3, 64, 64), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = cpu(x)
+        witness = (cpu(x * (1 + 1e-6)) - want).abs().max().item()
+        got = copy.deepcopy(cpu).to("cuda")(x.to("cuda")).cpu()
+    assert (got - want).abs().max().item() <= max(1e-4, 2 * witness)
+
+    model = create_model(name, dtype=torch.bfloat16, device="cuda")
+    model.set_dropout_rng(DropoutRng(0, "cuda"))
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    with torch.no_grad():
+        out = model(torch.zeros(2, 3, 3, 64, 64, device="cuda"))
+    model.train()
+    model(torch.randn(2, 3, 3, 64, 64, device="cuda")).float().mean().backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert all(w.launches == 0 for w in ops.KERNELS.values())
+
+
+@pytest.mark.parametrize("name", ["MMVit4", "RFNet"])
+def test_two_training_steps_repeat_their_bits(cuda, name):
+    """Two B=4 bf16 training steps at 224x224 (dropout 0.1 where the model
+    has it, Adam) from the same state, twice, under the entry points'
+    ``deterministic()`` scope: every parameter, buffer and loss equal bit
+    for bit (ROADMAP F5: before the scope and the port's own max-pool
+    backward they were not)."""
+    from corrifnet_tpu_torch.models import create_model
+    from corrifnet_tpu_torch.nn import DropoutRng
+    from corrifnet_tpu_torch.train import init_state, make_train_step
+    from corrifnet_tpu_torch.utils.determinism import deterministic
+
+    first = create_model(name, dtype=torch.bfloat16, device="cuda", seed=0)
+    second = copy.deepcopy(first)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, 4, 3, 3, 224, 224), generator=gen, device="cuda")
+    masks = (torch.rand((2, 4, 3, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
+    valid = torch.ones(4, device="cuda")
+    losses = []
+    with deterministic():
+        for model in (first, second):
+            model.set_dropout_rng(DropoutRng(0, "cuda"))
+            step = make_train_step(init_state(model, "Adam"))
+            losses.append(torch.stack([step(x[i], masks[i], valid, 1e-4) for i in range(2)]))
+        torch.cuda.synchronize()
+    assert torch.equal(losses[0], losses[1])
+    b = second.state_dict()
+    for key, value in first.state_dict().items():
+        assert torch.equal(value, b[key]), key

@@ -68,7 +68,7 @@ def test_create_model_is_seeded_and_full_size():
 
 def test_create_model_rejects_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("RFNet")
+        create_model("MultiSenseSeg")
 
 
 def test_whole_model_matches_jax(port_model_and_input):
@@ -130,13 +130,14 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
                 "models.decoder", "models.jax_import", "models.mmformer",
                 "models.mmvit2", "models.mmvit4",
-                "models.registry", "models.resnet3d", "nn", "nn.conv",
-                "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.resize",
-                "nn.transformer", "ops", "ops.attention", "ops.build",
+                "models.registry", "models.resnet3d", "models.rfnet",
+                "models.robustseg", "nn", "nn.conv",
+                "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
+                "nn.resize", "nn.transformer", "ops", "ops.attention", "ops.build",
                 "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
                 "run.evaluate", "run.main", "run.segplot", "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
-                "train.state", "utils", "utils.logfiles"):
+                "train.state", "utils", "utils.determinism", "utils.logfiles"):
         importlib.import_module("corrifnet_tpu_torch." + mod)
     from corrifnet_tpu_torch.data import write_permutation
     from corrifnet_tpu_torch.run.evaluate import main
