@@ -128,14 +128,20 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    the input, and a gradient tensor outside phase 7's bound held against
    the same step in float64 on the card (see ``phase_train_step``); the
    training run is ``--indices 0,1``: two identical runs, equal bit for bit;
-13. RFNet, then RobustMseg (``phase_zoo``), as phase 12: (a) evaluation with
-   no kernel launched; (b) ``--indices 0,1`` training at B=4, bf16, 40
-   patches resident, no kernel launched, the two runs equal bit for bit;
-   (c) and (d) card against CPU, the CPU's convolutions PyTorch's own in
-   (d) (oneDNN's conv3d weight gradient sums RFNet's 128^3 volumes less
-   accurately), RFNet's conv biases (which feed an InstanceNorm: their
-   gradient is 0 but for rounding) held by size, RobustMseg's Dropout2d
-   given the same host-drawn masks on both devices.
+13. RFNet, RobustMseg, MultiSenseSeg, then UNetV2 (``phase_zoo``), as
+   phase 12: (a) evaluation with no kernel launched; (b) ``--indices 0,1``
+   training at B=4, bf16, 40 patches resident, no kernel launched, the two
+   runs equal bit for bit; (c) and (d) card against CPU, the CPU's
+   convolutions PyTorch's own in (d) (oneDNN's conv3d weight gradient sums
+   RFNet's 128^3 volumes less accurately), the gradients that are 0 but for
+   rounding held by size (RFNet's conv biases, which feed an InstanceNorm;
+   ``testing.zero_gradients`` of the other two, which a BatchNorm undoes),
+   the zoo models' dropout given the same host-drawn masks on both
+   devices. UNetV2 is the 4-D input path: its training runs take the
+   modality ``chindex`` 1 picks (NIR), with a third of the resident bytes,
+   and write the curves and no segplot; its evaluation takes modality 0,
+   as the JAX package's does. Each part's seconds are logged, as are every
+   phase's and the whole run's.
 
 Every training run of phases 5, 8, 11, 12 and 13 runs under the entry
 point's ``deterministic()`` scope (PyTorch's deterministic algorithms,
@@ -257,15 +263,22 @@ MODEL_LAUNCHES = {
     "MMVit4": {"k1": 1, "k2": 4, "k3_eval": K3_STANDARD, "k3_step": K3_LEAN},
     "MMVit2": {"k1": 1, "k2": 4, "k3_eval": 69, "k3_step": 57},
     "mmformer": {"k1": 0, "k2": 4, "k3_eval": 69, "k3_step": 57},
-    # the JAX package runs no Pallas kernel on these two
+    # the JAX package runs no Pallas kernel on these four
     "RFNet": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
     "RobustMseg": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
+    "MultiSenseSeg": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
+    "UNetV2": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
 }
-# a gradient that is 0 but for rounding, by model: RFNet's conv biases feed an
-# InstanceNorm, which takes their mean out; held by size (ZERO_NOISE of the
-# largest gradient entry), not against the witness
+# phase 13's models, in order; UNetV2 takes one modality, chosen by chindex
+ZOO = ("RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2")
+ZOO_CONFIG = {"UNetV2": {"chindex": "1"}}
+# gradients that are 0 but for rounding, held by size (their largest entry
+# within ZERO_NOISE of the largest gradient entry), not against the witness:
+# RFNet's conv biases feed an InstanceNorm, which takes their mean out;
+# MultiSenseSeg's and UNetV2's are ``testing.zero_gradients``' (a BatchNorm
+# takes out what adds a constant to a channel), with the CPU tests' bound
 ZERO_GRADIENT = {"RFNet": ".conv.bias"}
-ZERO_NOISE = 1e-5
+ZERO_NOISE = {"RFNet": 1e-5, "MultiSenseSeg": 2e-4, "UNetV2": 2e-4}
 
 
 K4_PER_FORWARD = {"pointwise_conv_stats": 108, "conv3x3_fma_relu_stats": 39}
@@ -336,10 +349,19 @@ TIMED_SET = 240
 TRAIN_SET = 40  # 29 training patches (8 steps of 4), 3 validation, 8 test
 TRAIN_EVALS = 1 + 2  # 3 validation patches: 1 batch; 8 test patches: 2 batches
 # the training set resident on the card, wire-cast: bf16 images, uint8 masks
+# (a 4-D model's: the chosen modality and the masks' channel 0, a third)
 RESIDENT_BYTES = TRAIN_SET * (3 * 3 * 224 * 224 * 2 + 3 * 1 * 224 * 224)
+RESIDENT_BYTES_4D = TRAIN_SET * (3 * 224 * 224 * 2 + 1 * 224 * 224)
 # the per-epoch log files beside lrFile.txt
 LOG_FILES = ("trainFile.txt", "trainaccFile.txt", "trainepochFile.txt", "valFile.txt",
              "valaccFile.txt", "testFile.txt", "testaccFile.txt")
+
+
+def input_kind(model):
+    """'5d' (B, 3 modalities, 3 bands, H, W) or '4d' (B, 3 bands, H, W)."""
+    from corrifnet_tpu_torch.models.registry import get_spec
+
+    return get_spec(model).input_kind
 
 
 def log(msg):
@@ -1432,14 +1454,17 @@ def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False):
     validation by checkpoint and the test; launch counters reset just before
     and read just after. With ``repeat``, ``--indices 0,1`` over a ``{i}``
     config template: two identical runs, whose final checkpoints and log
-    values must be equal bit for bit. Returns the launch counts of the
-    run(s) and the (first) run's timed numbers."""
+    values must be equal bit for bit. A 4-D model runs on the modality that
+    its ``ZOO_CONFIG`` chindex picks, with a third of the resident bytes.
+    Returns the launch counts of the run(s) and the (first) run's timed
+    numbers."""
     from corrifnet_tpu_torch.run.main import main as train_main
 
     name = f"train_{int(fused)}_{model}"
     for i in (0, 1) if repeat else (0,):
         cfg = write_run_inputs(TRAIN_SET, tmp, f"{name}_{i}.json", n_epochs=1,
-                               pallas_fused_blocks=fused, modeltype=model)
+                               pallas_fused_blocks=fused, modeltype=model,
+                               **ZOO_CONFIG.get(model, {}))
     args = (["--config", str(Path(tmp) / f"{name}_{{i}}.json"), "--indices", "0,1"]
             if repeat else ["--config", str(cfg)])
     torch.cuda.empty_cache()
@@ -1458,8 +1483,8 @@ def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False):
         f"batches in {wall:.2f} s; launches {launches}")
     check_train_launches(launches, steps, fused, model, runs=len(runs))
     for i, run in runs.items():
-        check_resident(run, RESIDENT_BYTES)
-        check_run(run, i, epochs=1)
+        check_resident(run, RESIDENT_BYTES if input_kind(model) == "5d" else RESIDENT_BYTES_4D)
+        check_run(run, i, epochs=1, segplot=input_kind(model) == "5d")
     if repeat:
         diff = run_difference(run_values(runs[0], 0), run_values(runs[1], 1))
         log(f"  model0 against model1: largest difference over every tensor of "
@@ -1506,23 +1531,29 @@ def check_resident(r, want):
         raise AssertionError(f"resident bytes {r['resident_bytes']}, expected {want}")
 
 
-def check_run(r, index, epochs):
-    """The run directory holds every file of a run, and the losses and
-    Jaccards of its last epoch and its test are in their bands."""
+SEGPLOT_FILES = ("segmentation_image.png", "test_image.png", "test_image_R.png",
+                 "test_image_G.png", "test_image_B.png", "test_pred_mask.png",
+                 "ground_truth_mask.png")
+
+
+def check_run(r, index, epochs, segplot=True):
+    """The run directory holds every file of a run (the segplot family of
+    the first test image only with ``segplot``: a 4-D model's run writes
+    none, as in the JAX package), and the losses and Jaccards of its last
+    epoch and its test are in their bands."""
     run_dir = Path(r["run_dir"])
     files = ["lrFile.txt", *LOG_FILES, "fpsfile.txt", f"iremmodel{index}",
-             f"Finaliremmodel{index}",
-             # the first test image's segplot family; the curves need matplotlib
-             # (without it the run prints one line naming them)
-             "segmentation_image.png", "test_image.png", "test_image_R.png",
-             "test_image_G.png", "test_image_B.png", "test_pred_mask.png",
-             "ground_truth_mask.png"]
+             f"Finaliremmodel{index}", *(SEGPLOT_FILES if segplot else ())]
+    # the curves need matplotlib (without it the run prints one line naming them)
     if importlib.util.find_spec("matplotlib") is not None:
         files += ["learning_curves.png", "accuracy_curves.png"]
     missing = [f for f in files if not (run_dir / f).exists()
                or (run_dir / f).stat().st_size == 0]
     if missing:
         raise AssertionError(f"run directory lacks {missing}")
+    written = [f for f in SEGPLOT_FILES if not segplot and (run_dir / f).exists()]
+    if written:
+        raise AssertionError(f"a 4-D model's run wrote segplot files {written}")
     h = r["history"]
     if len(h["train_loss"]) != epochs or len(h["val_jac"]) != epochs:
         raise AssertionError(f"{epochs} epochs expected: {h}")
@@ -1684,8 +1715,10 @@ def phase_run_level(ops, tmp):
     check_run(train("--config", str(warm), "--run-root", f"{tmp}/d"), 0, epochs=1)
 
 
-def seeded_image():
-    return torch.randn((1, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
+def seeded_image(model="MMVit4"):
+    """One 224x224 image of ``model``'s input kind, from seed 0."""
+    lead = (1, 3) if input_kind(model) == "5d" else (1,)
+    return torch.randn((*lead, 3, 224, 224), generator=torch.Generator().manual_seed(0))
 
 
 def phase_whole_model(fused=False, model="MMVit4"):
@@ -1694,11 +1727,13 @@ def phase_whole_model(fused=False, model="MMVit4"):
     probabilities within WHOLE_MODEL_ATOL; for MMVit2 and mmformer within
     the larger of that and twice the witness, what the CPU's own output
     moves under a 1e-6 change of the input (MMVit2's correlation softmaxes
-    saturate at random initialization and amplify f32 rounding)."""
+    saturate at random initialization and amplify f32 rounding), and for
+    the zoo models. The output is (1, 3, 1, 224, 224), or (1, 1, 224, 224)
+    for a 4-D model."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm
 
-    x = seeded_image()
+    x = seeded_image(model)
     cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0)
     # O(1) activations, as trained statistics give (see calibrate_batchnorm;
     # MMVit2 and mmformer have no BatchNorm)
@@ -1727,7 +1762,8 @@ def phase_whole_model(fused=False, model="MMVit4"):
         + ("" if model == "MMVit4" else f": {WHOLE_MODEL_ATOL}, or twice the witness, the "
            f"CPU against itself under a 1e-6 change of the input, {witness:.3e}")
         + f"); shape {tuple(out_gpu.shape)}")
-    if out_gpu.shape != (1, 3, 1, 224, 224) or not bool(torch.isfinite(out_gpu).all()):
+    shape = (1, 3, 1, 224, 224) if input_kind(model) == "5d" else (1, 1, 224, 224)
+    if out_gpu.shape != shape or not bool(torch.isfinite(out_gpu).all()):
         raise AssertionError("whole-model output malformed")
     if not diff <= bound:
         raise AssertionError(f"whole model GPU vs CPU {diff} > {bound}")
@@ -1828,11 +1864,11 @@ def phase_train_step(decoder_lean=None, model="MMVit4"):
     0.49 against a bound near 0.12. The kernels' own backward checks
     (phase 3) are the tight ones."""
     from corrifnet_tpu_torch.models import create_model
-    from corrifnet_tpu_torch.testing import calibrate_batchnorm
+    from corrifnet_tpu_torch.testing import calibrate_batchnorm, zero_gradients
 
-    x = seeded_image()
+    x = seeded_image(model)
     gen = torch.Generator().manual_seed(1)
-    masks = (torch.rand((1, 3, 1, 224, 224), generator=gen) > 0.5).float()
+    masks = (torch.rand((*x.shape[:-3], 1, 224, 224), generator=gen) > 0.5).float()
     valid = torch.ones(1)
     cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
                        transformer_dropout=0.0, decoder_lean=decoder_lean)
@@ -1845,13 +1881,15 @@ def phase_train_step(decoder_lean=None, model="MMVit4"):
     _, g_wit = step_gradients(witness, x * (1 + 1e-6), masks, valid)
     if sorted(g_gpu) != sorted(g_cpu):
         raise AssertionError("gradients exist for different parameters on GPU and CPU")
-    zero = [n for n in g_cpu if model in ZERO_GRADIENT and n.endswith(ZERO_GRADIENT[model])]
+    zero = ([n for n in g_cpu if n.endswith(ZERO_GRADIENT[model])] if model in ZERO_GRADIENT
+            else zero_gradients(cpu) if model in ZERO_NOISE else [])
     if zero:
         scale = max(g.abs().max().item() for g in g_cpu.values())
         noise = max(g[n].abs().max().item() for g in (g_gpu, g_cpu) for n in zero) / scale
-        log(f"  {len(zero)} gradients that are 0 but for rounding ({ZERO_GRADIENT[model]}): "
-            f"largest entry {noise:.3e} of the largest gradient entry (bound {ZERO_NOISE})")
-        if not noise <= ZERO_NOISE:
+        log(f"  {len(zero)} gradients that are 0 but for rounding "
+            f"({ZERO_GRADIENT.get(model, 'testing.zero_gradients')}): largest entry "
+            f"{noise:.3e} of the largest gradient entry (bound {ZERO_NOISE[model]})")
+        if not noise <= ZERO_NOISE[model]:
             raise AssertionError("a zero gradient is not 0")
         for g in (g_gpu, g_cpu, g_wit):
             for n in zero:
@@ -1904,30 +1942,45 @@ def f64_step_gradients(cpu, x, masks, valid):
     return grads
 
 
+@contextlib.contextmanager
+def timed(what):
+    """Log the seconds ``what`` took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"  {what} took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_zoo(ops, tmp):
-    """Phase 13: RFNet, then RobustMseg, as phase 12 drives the family:
-    both entry points at full width with no kernel launched, two identical
-    training runs with equal bits, and card against CPU in f32. Returns
-    {model: (evaluation numbers, training numbers)}."""
+    """Phase 13: RFNet, RobustMseg, MultiSenseSeg, then UNetV2 (the 4-D
+    input path, on the modality chindex 1 picks), as phase 12 drives the
+    family: both entry points at full width with no kernel launched, two
+    identical training runs with equal bits, and card against CPU in f32;
+    each part's seconds logged. Returns {model: (evaluation numbers,
+    training numbers)}."""
     numbers = {}
-    for model in ("RFNet", "RobustMseg"):
+    for model in ZOO:
         log(f" (a) {model}: evaluation, 16 images then 48 timed, B={EVAL_B}, bf16; no "
-            f"kernel launched")
-        _, ev = phase_eval_slice(ops, tmp, model=model)
+            f"kernel launched" + ("; modality 0, as the JAX package evaluates a 4-D model"
+                                  if input_kind(model) == "4d" else ""))
+        with timed(f"(a) {model}"):
+            _, ev = phase_eval_slice(ops, tmp, model=model)
         log(f" (b) {model}: training, --indices 0,1, {TRAIN_SET} patches, 1 epoch, "
             f"B={TRAIN_B}, bf16, the data set resident; no kernel launched; the two runs "
-            f"equal bit for bit")
-        _, tr = phase_train_slice(ops, tmp, model=model, repeat=True)
+            f"equal bit for bit" + (f"; {ZOO_CONFIG[model]}, no segplot, the curves"
+                                    if model in ZOO_CONFIG else ""))
+        with timed(f"(b) {model}"):
+            _, tr = phase_train_slice(ops, tmp, model=model, repeat=True)
         log(f"  {model}: evaluation {ev['images_per_s']:.3f} images/s (batch seconds "
             f"{ev['batch_seconds']:.4f}, peak {ev['peak_bytes']} bytes); training "
             f"{tr['patches_per_s']:.3f} patches/s (step seconds {tr['step_seconds']:.4f}, "
             f"peak {tr['peak_bytes']} bytes)")
         torch.cuda.empty_cache()
         log(f" (c) {model}: whole model, B=1 f32, card vs CPU")
-        phase_whole_model(model=model)
+        with timed(f"(c) {model}"):
+            phase_whole_model(model=model)
         log(f" (d) {model}: one training step, B=1 f32, card vs CPU (the CPU's convolutions "
             f"PyTorch's own, without oneDNN)")
-        with torch.backends.mkldnn.flags(enabled=False):
+        with timed(f"(d) {model}"), torch.backends.mkldnn.flags(enabled=False):
             phase_train_step(model=model)
         torch.cuda.empty_cache()
         numbers[model] = (ev, tr)
@@ -2206,22 +2259,28 @@ def main():
         os.chdir(tmp)
         try:
             log("phase 4: evaluation slice, 16 images, B=8, bf16")
-            eval_launches, eval_off = phase_eval_slice(ops, tmp)
+            with timed("phase 4"):
+                eval_launches, eval_off = phase_eval_slice(ops, tmp)
             log("phase 5: training slice, 40 patches, 1 epoch, B=4, bf16, dropout 0.1")
-            launches, train_off = phase_train_slice(ops, tmp)
+            with timed("phase 5"):
+                launches, train_off = phase_train_slice(ops, tmp)
             log("phase 8: the fused configuration (pallas_fused_blocks) through "
                 "both entry points, same sizes")
-            fused_eval_launches, eval_on = phase_eval_slice(ops, tmp, fused=True)
-            fused_launches, train_on = phase_train_slice(ops, tmp, fused=True)
+            with timed("phase 8"):
+                fused_eval_launches, eval_on = phase_eval_slice(ops, tmp, fused=True)
+                fused_launches, train_on = phase_train_slice(ops, tmp, fused=True)
             log("phase 11: the training entry point's run-level features, 40 patches, "
                 "2 epochs, B=4, bf16, dropout 0.1")
-            phase_run_level(ops, tmp)
+            with timed("phase 11"):
+                phase_run_level(ops, tmp)
             log("phase 12: the conv-encoder family, MMVit2 then mmformer, through both "
                 "entry points and card against CPU")
-            phase_conv_family(ops, tmp)
-            log("phase 13: RFNet, then RobustMseg, through both entry points and card "
-                "against CPU")
-            phase_zoo(ops, tmp)
+            with timed("phase 12"):
+                phase_conv_family(ops, tmp)
+            log("phase 13: RFNet, RobustMseg, MultiSenseSeg, then UNetV2 (4-D), through "
+                "both entry points and card against CPU")
+            with timed("phase 13"):
+                phase_zoo(ops, tmp)
         finally:
             os.chdir(here)
     for counts, fused_counts in ((eval_launches, fused_eval_launches),
@@ -2245,22 +2304,26 @@ def main():
     torch.cuda.empty_cache()
 
     log("phase 6: whole model, B=1 f32, GPU kernels vs CPU plain versions")
-    phase_whole_model()
+    with timed("phase 6"):
+        phase_whole_model()
     log("phase 7: one training step, B=1 f32, GPU kernels vs CPU plain versions, "
         "the decoder lean by the batch rule")
-    phase_train_step()
-    log("phase 7, again with decoder_lean=false: the fused standard chain")
-    phase_train_step(decoder_lean=False)
+    with timed("phase 7"):
+        phase_train_step()
+        log("phase 7, again with decoder_lean=false: the fused standard chain")
+        phase_train_step(decoder_lean=False)
     log("phase 9: fused, GPU kernels vs CPU plain versions, f32: bottleneck train "
         "steps, then the whole model at B=1")
-    phase_fused_block()
-    phase_whole_model(fused=True)
+    with timed("phase 9"):
+        phase_fused_block()
+        phase_whole_model(fused=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log("phase 10: the decoder at the cascade's real sizes, fused and lean against "
         "the plain chain (f32, B=1), card against CPU; device time and peak memory "
         "of its forward and backward (bf16, B=4)")
-    phase_decoder()
+    with timed("phase 10"):
+        phase_decoder()
     log(f"chip_smoke took {time.perf_counter() - started:.1f} s")
 
     kernels = []

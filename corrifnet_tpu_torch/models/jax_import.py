@@ -15,8 +15,10 @@ gradients compare tensor by tensor under ``named_parameters()``.
 ``mmvit2_state_dict_from_variables`` and ``mmvit2_named_gradients`` do the
 same for MMVit2 and mmformer, inverting
 ``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``;
-``rfnet_*`` and ``robustseg_*`` invert ``rfnet_variables_from_state_dict``
-and ``robustseg_variables_from_state_dict``.
+``rfnet_*``, ``robustseg_*``, ``multisenseseg_*`` and ``unetv2_*`` invert
+``rfnet_variables_from_state_dict``, ``robustseg_variables_from_state_dict``,
+``multisenseseg_variables_from_state_dict`` and
+``unetv2_variables_from_state_dict``.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW), and 2-D ones
@@ -42,10 +44,14 @@ __all__ = [
     "mmvit2_state_dict_from_variables",
     "mmvit4_named_gradients",
     "mmvit4_state_dict_from_variables",
+    "multisenseseg_named_gradients",
+    "multisenseseg_state_dict_from_variables",
     "rfnet_named_gradients",
     "rfnet_state_dict_from_variables",
     "robustseg_named_gradients",
     "robustseg_state_dict_from_variables",
+    "unetv2_named_gradients",
+    "unetv2_state_dict_from_variables",
     "unflatten_variables",
     "unpack_stage1_variables",
 ]
@@ -369,6 +375,142 @@ def robustseg_named_gradients(grads) -> Dict[str, torch.Tensor]:
     """A JAX gradient tree of RobustMseg's ``params`` -> {port parameter
     name: gradient}, as ``mmvit4_named_gradients``."""
     return robustseg_state_dict_from_variables({"params": grads})
+
+
+def _linear_weight(kernel):
+    return _t(np.asarray(kernel).T)
+
+
+def _ln(sd, key, params):
+    sd[f"{key}.weight"] = _t(params["scale"])
+    sd[f"{key}.bias"] = _t(params["bias"])
+
+
+def _cba(sd, key, params, stats, conv=0):
+    """A ``_ConvBNAct``: its conv at index ``conv`` of the Sequential
+    ``key``, its BatchNorm (if any) at the next index."""
+    _put(sd, f"{key}.{conv}", params["conv"], _conv_weight)
+    if "bn" in params:
+        _bn(sd, f"{key}.{conv + 1}", params["bn"], _child(stats, "bn"))
+
+
+def _se(sd, key, params):
+    """SEAttention: the reference Sequential's convs at 1 and 3."""
+    _put(sd, f"{key}.attn.1", params["fc1"]["conv"], _conv_weight)
+    _put(sd, f"{key}.attn.3", params["fc2"]["conv"], _conv_weight)
+
+
+def _mss_block(sd, key, params, stats):
+    _ln(sd, f"{key}.norm1", params["norm1"])
+    attn = params["attn"]
+    _put(sd, f"{key}.attn.qkv", attn["qkv"], _linear_weight)
+    _put(sd, f"{key}.attn.proj", attn["proj"], _linear_weight)
+    sd[f"{key}.attn.relative_position_bias_table"] = _t(
+        attn["relative_position_bias_table"])
+    _bn(sd, f"{key}.norm2.1", params["norm2"], _child(stats, "norm2"))
+    mlp, mlp_stats = params["mlp"], _child(stats, "mlp")
+    _put(sd, f"{key}.mlp.convup.0", mlp["convup"]["conv"], _conv_weight)
+    _cba(sd, f"{key}.mlp.dw_conv", mlp["dw"], _child(mlp_stats, "dw"))
+    _put(sd, f"{key}.mlp.convdown", mlp["convdown"]["conv"], _conv_weight)
+
+
+def multisenseseg_state_dict_from_variables(variables, depths=(2, 2, 8, 2)
+                                            ) -> Dict[str, torch.Tensor]:
+    """JAX MultiSenseSeg ``variables`` -> port state_dict under the
+    reference's names (``build_MSEs_AMM``, ``build_pipeline``,
+    ``build_neck``, ``build_decode_head``). ``depths``: the Swin stages'
+    block counts the tree was built with. The AMM offset table and the
+    window attention's relative position index are static in both packages
+    and in neither tree."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+    head = "build_MSEs_AMM"
+    for i in range(3):
+        p, s, key = params[f"MSE{i}"], _child(stats, f"MSE{i}"), f"{head}.MSEs.{i}"
+        _cba(sd, f"{key}.conv1", p["conv1"], _child(s, "conv1"))
+        _put(sd, f"{key}.conv2", p["conv2"]["conv"], _conv_weight)
+        _cba(sd, f"{key}.conv3", p["conv3_dw"], _child(s, "conv3_dw"))
+        _put(sd, f"{key}.conv3.2", p["conv3_pw"]["conv"], _conv_weight)
+        _se(sd, f"{key}.attn", p["attn"])
+    _cba(sd, f"{head}.smooth", params["smooth"], _child(stats, "smooth"))
+    amm, key = params["AMM"], f"{head}.fuse_proj"
+    _put(sd, f"{key}.short_cut_conv.0", amm["short_cut_conv"], _conv_weight)
+    _ln(sd, f"{key}.short_cut_conv.1.1", amm["short_cut_ln"])
+    for name, target in (("q", "q"), ("k", "k"), ("v", "v"), ("q_proj", "q_proj.1"),
+                         ("k_proj", "k_proj.1"), ("v_proj", "v_proj")):
+        _put(sd, f"{key}.{target}", amm[name], _conv_weight)
+    sd[f"{key}.logit_scale"] = _t(amm["logit_scale"])
+    _put(sd, f"{key}.cpb_mlp.0", amm["cpb_fc1"], _linear_weight)
+    _put(sd, f"{key}.cpb_mlp.2", amm["cpb_fc2"], _linear_weight)
+    _put(sd, f"{key}.proj.0", amm["proj1"]["conv"], _conv_weight)
+    _put(sd, f"{key}.proj.2", amm["proj2"]["conv"], _conv_weight)
+    _ln(sd, f"{key}.norm.1", amm["norm"])
+
+    bb, bb_stats = params["backbone"], _child(stats, "backbone")
+    for li, depth in enumerate(depths):
+        for i in range(depth):
+            name = f"stage{li}_block{i}"
+            _mss_block(sd, f"build_pipeline.layers.{li}.long_blocks.{i}", bb[name],
+                       _child(bb_stats, name))
+        _ln(sd, f"build_pipeline.norm{li}", bb[f"out_norm{li}"])
+        if li < len(depths) - 1:
+            merge = bb[f"merge{li}"]
+            _ln(sd, f"build_pipeline.layers.{li}.downsample.ln", merge["ln"])
+            _put(sd, f"build_pipeline.layers.{li}.downsample.reduction", merge["reduction"],
+                 _linear_weight)
+
+    ppm, ppm_stats = params["ppm"], _child(stats, "ppm")
+    for i in range(4):
+        _put(sd, f"build_neck.ppm_head.pool_projs.{i}.1", ppm[f"pool_proj{i}"], _conv_weight)
+    _cba(sd, "build_neck.ppm_head.bottom", ppm["bottom"], _child(ppm_stats, "bottom"))
+    fpn, fpn_stats = params["fpn"], _child(stats, "fpn")
+    for i in range(len(depths) - 1):
+        _cba(sd, f"build_neck.fpn_neck.conv_.{i}", fpn[f"conv_{i}"],
+             _child(fpn_stats, f"conv_{i}"))
+        _cba(sd, f"build_neck.fpn_neck.fpn_conv.{i}", fpn[f"fpn_conv{i}"],
+             _child(fpn_stats, f"fpn_conv{i}"))
+    _cba(sd, "build_neck.fpn_neck.out", fpn["out"], _child(fpn_stats, "out"))
+
+    dg, dg_stats, d = params["decode_gate"], _child(stats, "decode_gate"), "build_decode_head"
+    _cba(sd, f"{d}.conv", dg["conv"], _child(dg_stats, "conv"))
+    _put(sd, f"{d}.spat_attn.conv1.1", dg["sa_conv1"], _conv_weight)
+    _bn(sd, f"{d}.spat_attn.conv1.2", dg["sa_bn1"], _child(dg_stats, "sa_bn1"))
+    _cba(sd, f"{d}.spat_attn.conv2", dg["sa_conv2"], _child(dg_stats, "sa_conv2"))
+    _cba(sd, f"{d}.spat_attn.attn", dg["sa_attn"], _child(dg_stats, "sa_attn"), conv=1)
+    _se(sd, f"{d}.chan_attn", dg["chan_attn"])
+    _cba(sd, f"{d}.dwconv", dg["dw1"], _child(dg_stats, "dw1"))
+    _put(sd, f"{d}.dwconv.2", dg["dw2"]["conv"], _conv_weight)
+    _put(sd, f"{d}.out.1", dg["out_conv"]["conv"], _conv_weight)
+    return sd
+
+
+def multisenseseg_named_gradients(grads, depths=(2, 2, 8, 2)) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of MultiSenseSeg's ``params`` -> {port parameter
+    name: gradient}, as ``mmvit4_named_gradients``."""
+    return multisenseseg_state_dict_from_variables({"params": grads}, depths)
+
+
+def unetv2_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX UNetV2 ``variables`` -> port state_dict: each DoubleConv's convs
+    at indices 0 and 3 of the reference's ``conv`` Sequential, its
+    BatchNorms at 1 and 4."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+    keys = {"inc": "inc.conv.conv", **{f"down{i}": f"down{i}.mpconv.2.conv" for i in range(1, 5)},
+            **{f"up{i}": f"up{i}.conv.conv" for i in range(1, 5)}}
+    for name, key in keys.items():
+        p, s = params[name], _child(stats, name)
+        for i, idx in enumerate((0, 3)):
+            _put(sd, f"{key}.{idx}", p[f"conv{i}"], _conv_weight)
+            _bn(sd, f"{key}.{idx + 1}", p[f"bn{i}"], _child(s, f"bn{i}"))
+    _put(sd, "outc.conv", params["outc"], _conv_weight)
+    return sd
+
+
+def unetv2_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of UNetV2's ``params`` -> {port parameter name:
+    gradient}, as ``mmvit4_named_gradients``."""
+    return unetv2_state_dict_from_variables({"params": grads})
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

@@ -2,12 +2,13 @@
 
 Counterpart of ``corrifnet_tpu/models/registry.py``: a table of specs (name,
 factory, input kind, the model options it takes). MMVit4 (CorrIFNet), MMVit2,
-mmformer, RFNet and RobustMseg are ported; every other model of the JAX
-package's zoo is still to be ported (see ROADMAP.md). A factory takes the
-compute ``dtype``, ``transformer_dropout`` and the options its spec names as
-keywords and returns a module with ``compute_dtype``,
-``reset_parameters(generator)`` and ``set_dropout_rng(rng)``, as ``MMVit4``
-has. An option set for a model that
+mmformer, RFNet, RobustMseg and MultiSenseSeg (5-D input) and UNetV2 (4-D
+input: one modality, chosen by the config's ``chindex``) are ported; every
+other model of the JAX package's zoo is still to be ported (see ROADMAP.md).
+A factory takes the compute ``dtype``, ``transformer_dropout`` and the
+options its spec names as keywords and returns a module with
+``compute_dtype``, ``reset_parameters(generator)`` and
+``set_dropout_rng(rng)``, as ``MMVit4`` has. An option set for a model that
 does not take it has no effect, as in the JAX package's ``_build_model``
 (``corrifnet_tpu/run/main.py:48-67``), and ``create_model`` prints one line
 naming it.
@@ -23,8 +24,10 @@ from torch import nn
 
 from corrifnet_tpu_torch.models.mmvit2 import MMFormer, MMVit2
 from corrifnet_tpu_torch.models.mmvit4 import MMVit4
+from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
 from corrifnet_tpu_torch.models.rfnet import RFNet
 from corrifnet_tpu_torch.models.robustseg import RobustMseg
+from corrifnet_tpu_torch.models.unet import UNetV2
 
 __all__ = ["ModelSpec", "create_model", "get_spec"]
 
@@ -37,7 +40,7 @@ _OPTION_DEFAULTS = {"pallas_fused_blocks": False, "decoder_lean": None}
 class ModelSpec:
     name: str
     factory: Callable[..., nn.Module]
-    input_kind: str  # '5d': (B, 3 modalities, 3 bands, H, W)
+    input_kind: str  # '5d': (B, 3 modalities, 3 bands, H, W); '4d': (B, 3 bands, H, W)
     options: Tuple[str, ...] = tuple(_OPTION_DEFAULTS)  # the ones the factory takes
 
 
@@ -47,6 +50,8 @@ _REGISTRY: Dict[str, ModelSpec] = {
     "mmformer": ModelSpec("mmformer", MMFormer, "5d", options=()),
     "RFNet": ModelSpec("RFNet", RFNet, "5d", options=()),
     "RobustMseg": ModelSpec("RobustMseg", RobustMseg, "5d", options=()),
+    "MultiSenseSeg": ModelSpec("MultiSenseSeg", MultiSenseSeg, "5d", options=()),
+    "UNetV2": ModelSpec("UNetV2", UNetV2, "4d", options=()),
 }
 
 

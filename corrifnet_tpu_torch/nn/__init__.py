@@ -8,7 +8,12 @@ from corrifnet_tpu_torch.nn.conv import (
     GeneralConv3d,
 )
 from corrifnet_tpu_torch.nn.norm import BatchNorm, InstanceNorm, LayerNorm
-from corrifnet_tpu_torch.nn.resize import max_pool, resize_linear, resize_nearest
+from corrifnet_tpu_torch.nn.resize import (
+    adaptive_max_pool,
+    max_pool,
+    resize_linear,
+    resize_nearest,
+)
 from corrifnet_tpu_torch.nn.transformer import DropoutRng, Transformer
 
 __all__ = [
@@ -22,6 +27,7 @@ __all__ = [
     "InstanceNorm",
     "LayerNorm",
     "Transformer",
+    "adaptive_max_pool",
     "max_pool",
     "resize_linear",
     "resize_nearest",

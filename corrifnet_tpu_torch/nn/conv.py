@@ -41,23 +41,29 @@ class Conv(nn.Module):
     rank-generic) with PyTorch's default bias. ``kernel_init``:
     'kaiming_normal' (MMVit4 re-initializes every Conv3d,
     mmvit4.py:437-439, and RFNet's convs are built so) or 'torch_default',
-    U(+-1/sqrt(fan_in)) (RobustMseg's). ``padding_mode`` is 'zeros' or
-    'replicate'."""
+    U(+-1/sqrt(fan_in)) (the 2-D models'). ``padding_mode`` is 'zeros' or
+    'replicate'. ``groups`` splits the channels into that many blocks, as
+    PyTorch's and the JAX ``Conv``'s ``groups`` do (MultiSenseSeg's grouped
+    1x1 and depthwise 3x3 convs); the weight is ``(out, in / groups,
+    *kernel)`` and its fan-in that of one group."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=True, padding_mode="zeros", dims=3,
-                 kernel_init="kaiming_normal"):
+                 kernel_init="kaiming_normal", groups=1):
         super().__init__()
         if padding_mode not in ("zeros", "replicate"):
             raise ValueError(f"padding_mode {padding_mode!r}")
         if dims not in (2, 3) or kernel_init not in _KERNEL_INITS:
             raise ValueError(f"dims {dims!r}, kernel_init {kernel_init!r}")
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"{in_channels} -> {out_channels} channels in {groups} groups")
+        self.groups = groups
         self.stride = _tuple(stride, dims)
         self.padding = _tuple(padding, dims)
         self.padding_mode = padding_mode
         self.kernel_init = kernel_init
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, *_tuple(kernel_size, dims))
+            torch.empty(out_channels, in_channels // groups, *_tuple(kernel_size, dims))
         )
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
@@ -90,7 +96,7 @@ class Conv(nn.Module):
                 x = replicate_pad(x, [(p, p) for p in self.padding])
             return (x,), x.shape[0]
         if (self.weight.shape[2] != 3 or self.padding[0] != 1
-                or self.stride != (1, 1, 1)):
+                or self.stride != (1, 1, 1) or self.groups != 1):
             raise ValueError("depth fusion needs a stride-1 conv with 3 depth "
                              f"taps and depth padding 1, not {tuple(self.weight.shape)}")
         parts = x if depth_fuse[0] == "nearest" else (x,)
@@ -105,7 +111,9 @@ class Conv(nn.Module):
         if depth_fuse is None:
             padding = 0 if self.padding_mode == "replicate" else self.padding
             conv = F.conv3d if w.dim() == 5 else F.conv2d
-            return conv(parts[0], w, bias, self.stride, padding)
+            if self.groups == 1:
+                return conv(parts[0], w, bias, self.stride, padding)
+            return conv(parts[0], w, bias, self.stride, padding, groups=self.groups)
         kind, dst_d = depth_fuse
         if kind == "linear":
             return expand_conv(parts, [w], ["linear"], batch, dst_d,

@@ -23,7 +23,15 @@ that training repeats its bits on the card (``utils/determinism.py``):
     percent wrong on the card and right on the CPU;
   * max pooling's backward adds each window's gradient at its argmax, one
     strided add per window tap in a fixed order (PyTorch's scatters with
-    atomics where windows overlap, as the MMVit4 stem's do).
+    atomics where windows overlap, as the MMVit4 stem's do). 2-D pooling
+    (MultiSenseSeg's AMM and decode gate, UNetV2's down paths) runs on a
+    depth-1 view of the input, so it keeps that backward and its rule for
+    ties: the pooled inputs there follow a ReLU, and windows of zeros are
+    common;
+  * ``adaptive_max_pool`` is the JAX package's: one ``amax`` per output
+    cell over its slice, whose gradient is spread evenly over tied entries
+    as ``jnp.max``'s is (PyTorch's ``adaptive_max_pool2d`` backward has no
+    deterministic CUDA implementation).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_linear", "resize_nearest", "max_pool"]
+__all__ = ["adaptive_max_pool", "resize_linear", "resize_nearest", "max_pool"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,6 +204,29 @@ class _MaxPool(torch.autograd.Function):
         return core.to(g.dtype), None, None, None
 
 
-def max_pool(x, window, strides, padding):
-    """3-D max pooling, padded with -inf (the MMVit4 stem's MaxPool3d)."""
-    return _MaxPool.apply(x, tuple(window), tuple(strides), tuple(padding))
+def max_pool(x, window, strides=None, padding=None):
+    """Max pooling of NCDHW (3-D window) or NCHW (2-D window) input, padded
+    with -inf (the MMVit4 stem's MaxPool3d; MaxPool2d); ``strides``
+    defaults to the window and ``padding`` to 0, as in the JAX package."""
+    window = tuple(window)
+    strides = tuple(strides) if strides is not None else window
+    padding = tuple(padding) if padding is not None else (0,) * len(window)
+    if len(window) == 3:
+        return _MaxPool.apply(x, window, strides, padding)
+    y = _MaxPool.apply(x.unsqueeze(2), (1, *window), (1, *strides), (0, *padding))
+    return y.squeeze(2)
+
+
+def adaptive_max_pool(x, out_hw):
+    """PyTorch's AdaptiveMaxPool2d on NCHW input: output cell (i, j) is the
+    max over rows [floor(i*H/oh), ceil((i+1)*H/oh)) and columns
+    [floor(j*W/ow), ceil((j+1)*W/ow)) (``corrifnet_tpu/nn/resize.py:213``)."""
+    h, w = x.shape[2:]
+    oh, ow = out_hw
+    rows = []
+    for i in range(oh):
+        r0, r1 = (i * h) // oh, -(-((i + 1) * h) // oh)
+        cols = [x[:, :, r0:r1, (j * w) // ow:-(-((j + 1) * w) // ow)].amax(dim=(2, 3))
+                for j in range(ow)]
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)  # (B, C, oh, ow)

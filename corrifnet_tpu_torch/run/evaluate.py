@@ -4,13 +4,18 @@ Counterpart of ``corrifnet_tpu/run/evaluate.py:39-177``, on the port's own
 config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack or
 synthetic) -> batches of
 ``max(mini_batch_size, 8)`` -> forward -> per-image (jaccard2, f1) on
-modality channel 0 -> mean and std.
+modality channel 0 -> mean and std. A 4-D model (UNetV2) is given modality 0
+and channel 0 of the masks *whatever the config's* ``chindex`` (the JAX
+package's ``evaluate_run`` does so, ``corrifnet_tpu/run/evaluate.py:99-100``):
+a 4-D model trained on NIR is evaluated on RGB (ROADMAP.md, "Not faults").
 
 Weights: ``--weights`` takes a ``.npz`` of the flattened JAX variable tree
 (``/``-joined keys, e.g. ``params/encoders/conv6/kernel``) of the config's
-``modeltype`` (MMVit4, MMVit2, mmformer, RFNet or RobustMseg), converted by
-``models.jax_import``, or a ``.pt`` port ``state_dict``. Without it the
-model is initialized from ``cfg.seed``.
+``modeltype`` (MMVit4, MMVit2, mmformer, RFNet, RobustMseg, MultiSenseSeg or
+UNetV2), converted by ``models.jax_import``, or a ``.pt`` ``state_dict``:
+the port's, or the reference's (its BatchNorm step counters and dead
+up-sampling weights dropped, its static tables checked against the port's).
+Without it the model is initialized from ``cfg.seed``.
 
     python -m corrifnet_tpu_torch.run.evaluate --config model0.txt \
         [--weights weights.npz] [--device cuda]
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from pathlib import Path
 
@@ -33,13 +39,17 @@ from corrifnet_tpu_torch.models import (
     create_model,
     mmvit2_state_dict_from_variables,
     mmvit4_state_dict_from_variables,
+    multisenseseg_state_dict_from_variables,
     rfnet_state_dict_from_variables,
     robustseg_state_dict_from_variables,
+    unetv2_state_dict_from_variables,
 )
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
+from corrifnet_tpu_torch.models.multisenseseg import _amm_relative_bias, _relative_position_index
+from corrifnet_tpu_torch.models.registry import get_spec
 from corrifnet_tpu_torch.utils.determinism import deterministic
 
-__all__ = ["compute_dtype", "evaluate_run", "load_weights", "main",
+__all__ = ["compute_dtype", "evaluate_run", "evaluation_arrays", "load_weights", "main",
            "per_image_metrics"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -57,20 +67,26 @@ _CONVERTERS = {
     "mmformer": lambda v: mmvit2_state_dict_from_variables(v, mmformer=True),
     "RFNet": rfnet_state_dict_from_variables,
     "RobustMseg": robustseg_state_dict_from_variables,
+    "MultiSenseSeg": multisenseseg_state_dict_from_variables,
+    "UNetV2": unetv2_state_dict_from_variables,
 }
 
 
 def _npz_model(params):
     """Which of the ported models a JAX ``params`` tree is (None: none of
     them): MMVit4 has the fused6 group, RFNet the region map generators,
-    RobustMseg the content encoders; of the conv-encoder family, mmformer's
-    unused qkv leaves are zero."""
+    RobustMseg the content encoders, MultiSenseSeg AMM, UNetV2 ``outc``; of
+    the conv-encoder family, mmformer's unused qkv leaves are zero."""
     if "fused6_pos" in params:
         return "MMVit4"
     if "prm_generator4" in params:
         return "RFNet"
     if "content_enc" in params:
         return "RobustMseg"
+    if "AMM" in params:
+        return "MultiSenseSeg"
+    if "outc" in params:
+        return "UNetV2"
     qkv = params.get("modality_stream", {}).get("qkv")
     if "multimodal_decode_conv" not in params or qkv is None:
         return None
@@ -85,6 +101,10 @@ def _state_dict_model(keys):
         return "RFNet"
     if "content_enc_list.0.e1c1.conv.weight" in keys:
         return "RobustMseg"
+    if "build_MSEs_AMM.fuse_proj.logit_scale" in keys:
+        return "MultiSenseSeg"
+    if "outc.conv.weight" in keys:
+        return "UNetV2"
     if "RGB_encoder.e1_c1.weight" not in keys:
         return None
     return "MMVit2" if "qkv_RGB.weight" in keys else "mmformer"
@@ -95,13 +115,50 @@ def _check_model(path, found, modeltype):
         raise ValueError(f"{path} holds {found} weights, not {modeltype}")
 
 
+def _static_tables(keys):
+    """{key: the port's value} of the reference's static buffers among
+    ``keys``: AMM's channel-offset table and the window attentions' relative
+    position indices, which the port builds and keeps out of its
+    ``state_dict``, as the JAX package does."""
+    tables = {}
+    for key in keys:
+        if key.endswith("fuse_proj.relative_position_bias"):
+            tables[key] = _amm_relative_bias(int(round(keys[key].numel() ** 0.5)))
+        elif key.endswith("attn.relative_position_index"):
+            side = int(round((keys[key].numel() ** 0.25)))
+            tables[key] = _relative_position_index(side, side)
+    return tables
+
+
+def _from_reference(sd, path):
+    """A reference ``state_dict`` as the port's: BatchNorm's
+    ``num_batches_tracked`` and UNetV2's dead ConvTranspose2d weights
+    (``up{i}.up.*``, unused with ``bilinear=True``) dropped, and the static
+    tables dropped once they equal the port's (``ValueError`` otherwise)."""
+    out = {}
+    tables = _static_tables(sd)
+    for key, value in sd.items():
+        if key in tables:
+            want = tables[key]
+            got = value.detach().cpu().numpy()
+            if got.size != want.size or not np.allclose(got.reshape(want.shape), want,
+                                                        rtol=1e-6, atol=1e-6):
+                raise ValueError(f"{path}: {key} differs from the table the model builds")
+            continue
+        if key.endswith("num_batches_tracked") or re.match(r"up\d\.up\.", key):
+            continue
+        out[key] = value
+    return out
+
+
 def load_weights(path, modeltype="MMVit4"):
-    """A port state_dict for ``modeltype`` from a ``.pt`` file or a flattened
-    JAX ``.npz``, converted by that model's converter. Weights of another of
-    the ported models raise ``ValueError`` naming both."""
+    """A port state_dict for ``modeltype`` from a ``.pt`` file (the port's
+    or the reference's) or a flattened JAX ``.npz``, converted by that
+    model's converter. Weights of another of the ported models raise
+    ``ValueError`` naming both."""
     path = Path(path)
     if path.suffix != ".npz":
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd = _from_reference(torch.load(path, map_location="cpu", weights_only=True), path)
         _check_model(path, _state_dict_model(sd), modeltype)
         return sd
     with np.load(path, allow_pickle=False) as z:
@@ -111,6 +168,15 @@ def load_weights(path, modeltype="MMVit4"):
         raise NotImplementedError(
             f"no converter of JAX {modeltype} variables to the port; see ROADMAP.md")
     return _CONVERTERS[modeltype](variables)
+
+
+def evaluation_arrays(data, spec):
+    """(images, masks) that ``evaluate_run`` gives a model of ``spec``: all
+    of them for a 5-D model; modality 0 and mask channel 0 for a 4-D one,
+    whatever ``chindex`` says (``corrifnet_tpu/run/evaluate.py:99-100``)."""
+    if spec.input_kind == "5d":
+        return data.images, data.masks
+    return np.ascontiguousarray(data.images[:, 0]), data.masks[:, 0]
 
 
 @torch.no_grad()
@@ -155,10 +221,9 @@ def evaluate_run(cfg, weights=None, device="cuda"):
                          decoder_lean=cfg.decoder_lean)
     if weights is not None:
         model.load_state_dict(load_weights(weights, cfg.modeltype), strict=True)
+    images, masks = evaluation_arrays(data, get_spec(cfg.modeltype))
     bs = max(cfg.mini_batch_size, 8)
-    jacks, f1s, seconds = per_image_metrics(
-        model, data.images, data.masks, tsind, bs, device
-    )
+    jacks, f1s, seconds = per_image_metrics(model, images, masks, tsind, bs, device)
     return {
         "jaccard_mean": float(jacks.mean()),
         "jaccard_std": float(jacks.std()),

@@ -27,8 +27,12 @@ batches of a bf16 model are copied as bf16 images and uint8 masks
 Runs on the GPU unless ``--device cpu`` is given; without a GPU the default
 raises, it never falls back to the CPU. The curve PNGs need matplotlib:
 without it one printed line names the files that were not written (the
-segplot PNGs have their own writer). Still to be ported (see ROADMAP.md):
-the config fields ``config.check_supported`` names.
+segplot PNGs have their own writer). Models: MMVit4, MMVit2, mmformer,
+RFNet, RobustMseg and MultiSenseSeg take the three modalities; UNetV2 (4-D
+input) takes the one ``chindex`` picks and channel 0 of the masks, and its
+runs write no segplot, as in the JAX package. Still to be ported (see
+ROADMAP.md): the rest of the zoo (``models.registry``) and the config fields
+``config.check_supported`` names.
 ``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
 the fused convolution kernels; so is ``decoder_lean`` (None: the lean decoder
 backward at batch <= 4, as the JAX package).
@@ -55,6 +59,7 @@ from corrifnet_tpu_torch.config import ExperimentConfig, check_supported, load_c
 from corrifnet_tpu_torch.data import cross_val, load_dstl
 from corrifnet_tpu_torch.data.dataset import DeviceDataset
 from corrifnet_tpu_torch.models import create_model
+from corrifnet_tpu_torch.models.registry import get_spec
 from corrifnet_tpu_torch.nn.init import apply_reference_init_scheme
 from corrifnet_tpu_torch.run.evaluate import compute_dtype, load_weights
 from corrifnet_tpu_torch.run.segplot import segplot
@@ -68,7 +73,7 @@ from corrifnet_tpu_torch.train.loop import _wire_cast_enabled
 from corrifnet_tpu_torch.utils.determinism import deterministic
 from corrifnet_tpu_torch.utils.logfiles import RunLogs
 
-__all__ = ["run_experiment", "main"]
+__all__ = ["main", "prepare_images", "run_experiment"]
 
 _CURVES = {"train_loss": "trainFile.txt", "train_jac": "trainaccFile.txt",
            "val_loss": "valFile.txt", "val_jac": "valaccFile.txt"}
@@ -98,11 +103,14 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
     data = load_dstl(cfg.train_set_size, trind, pack_path=cfg.data_pack,
                      synthetic_seed=cfg.synthetic_seed,
                      data_dirs=cfg.data_dirs)
+    spec = get_spec(cfg.modeltype)
+    images = prepare_images(data.images, spec, cfg.chindex)
+    masks = data.masks if spec.input_kind == "5d" else data.masks[:, 0]
 
     # transfertype (F2_MAIN.py:134-165): 'notr' re-initializes the 2-D conv
     # kernels the JAX package does with cfg.initialization (of the ported
-    # models, RobustMseg's 54 outside its per-modality encoders), from a
-    # stream of its own; 'yestr' warm-starts from cfg.transfer_checkpoint,
+    # models, RobustMseg's 54 outside its per-modality encoders,
+    # MultiSenseSeg's 91 and UNetV2's 19), from a stream of its own; 'yestr' warm-starts from cfg.transfer_checkpoint,
     # converted as cfg.modeltype (the model stays as built when none is named,
     # as in the JAX package); 'loratr' leaves the model as built
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
@@ -147,14 +155,13 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
         logs = RunLogs.open(run_dir)
         ckpt = Checkpointer(run_dir)
 
-    device_data = _maybe_device_dataset(model, data.images, data.masks, vlind,
-                                        tsind, device)
+    device_data = _maybe_device_dataset(model, images, masks, vlind, tsind, device)
     try:
         state, history = train_model(
             state,
             n_epochs=cfg.n_epochs, learn_rate=cfg.learn_rate,
             step_size=cfg.step_size, gamma=cfg.gamma,
-            images=data.images, masks=data.masks, trind=trind, vlind=vlind,
+            images=images, masks=masks, trind=trind, vlind=vlind,
             batch_size=cfg.mini_batch_size, lim=cfg.lim,
             logs=logs, ckpt=ckpt, i=index, seed=cfg.seed,
             val_from_checkpoint=cfg.val_from_checkpoint,
@@ -167,14 +174,15 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
         if prior_history is not None:
             history.update({k: v + history[k] for k, v in prior_history.items()})
         test_loss, test_jac, fps, first_outputs = test_model(
-            model, data.images, data.masks, tsind, cfg.mini_batch_size, cfg.lim,
+            model, images, masks, tsind, cfg.mini_batch_size, cfg.lim,
             logs, ckpt, i=index, device_data=device_data,
         )
-        # first-test-image overlay (F7_TEST2.py:136-166)
-        first = tsind[0]
-        segplot(run_dir, cfg.lim, np.moveaxis(data.images[first, 0], 0, -1),
-                first_outputs[0, 0, 0], data.masks[first, 0, 0],
-                data.tr_mean_r, data.tr_mean_g, data.tr_mean_b)
+        if spec.input_kind == "5d":
+            # first-test-image overlay (F7_TEST2.py:136-166), 5-D models only
+            first = tsind[0]
+            segplot(run_dir, cfg.lim, np.moveaxis(data.images[first, 0], 0, -1),
+                    first_outputs[0, 0, 0], data.masks[first, 0, 0],
+                    data.tr_mean_r, data.tr_mean_g, data.tr_mean_b)
     finally:
         logs.close()
     _write_summary_log(run_dir, cfg, begin, trind, vlind, test_jac, model)
@@ -193,6 +201,21 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
         "train_steps": state.step,
         "resident_bytes": 0 if device_data is None else device_data.nbytes,
     }
+
+
+def prepare_images(images, spec, chindex="0"):
+    """The images a model of ``spec`` takes (``corrifnet_tpu/run/main.py``
+    ``_prepare_images``): a 5-D model all three modalities, (N, 3, 3, H, W);
+    a 4-D model the one the config's ``chindex`` picks, (N, 3, H, W), 0/1/2
+    for RGB/NIR/SWIR, modality 0 where ``chindex`` is not an integer or is
+    out of range."""
+    if spec.input_kind == "4d":
+        try:
+            m = int(chindex)
+        except (TypeError, ValueError):
+            m = 0
+        return np.ascontiguousarray(images[:, m if 0 <= m < images.shape[1] else 0])
+    return images
 
 
 def scheme_generator(seed: int) -> torch.Generator:
@@ -221,7 +244,8 @@ def _maybe_device_dataset(model, images, masks, vlind, tsind, device):
     indices, what = choice
     dd = DeviceDataset(images, masks, wire_cast=_wire_cast_enabled(model),
                        indices=indices, device=device)
-    print(f"device-resident {what}: {dd.nbytes / 1e9:.2f} GB on {device}")
+    print(f"device-resident {what}: {dd.nbytes / 1e9:.2f} GB ({dd.nbytes} bytes, images "
+          f"{tuple(images.shape[1:])} per sample) on {device}")
     return dd
 
 

@@ -5,7 +5,8 @@ activations that trained BatchNorm statistics keep, so that comparisons
 of two implementations on random weights measure rounding, not the
 amplification of it. The CPU tests and ``chip_smoke.py`` call it.
 ``block_train_step`` and ``well_conditioned_block`` serve the checks of a
-fused bottleneck on the card against the CPU.
+fused bottleneck on the card against the CPU. ``zero_gradients`` names the
+parameters whose gradient is 0 but for rounding in training mode.
 """
 
 from __future__ import annotations
@@ -16,7 +17,45 @@ from torch import nn
 from corrifnet_tpu_torch.nn.norm import BatchNorm
 
 __all__ = ["block_train_step", "calibrate_batchnorm", "rel_max",
-           "well_conditioned_block"]
+           "well_conditioned_block", "zero_gradients"]
+
+
+def zero_gradients(model: nn.Module):
+    """The names of the parameters whose gradient in training mode is 0 but
+    for rounding, to be held by size and not by relative error: with batch
+    statistics a ``BatchNorm`` takes out again what adds a constant to each
+    of its channels. These are the conv biases that feed a BatchNorm
+    directly (the next module of the same Sequential: MultiSenseSeg's seven,
+    each of UNetV2's), and in MultiSenseSeg:
+
+      * the LayerNorm biases of the stages whose output reaches a BatchNorm
+        through a 1x1 conv alone (the FPN's laterals: every stage but the
+        last);
+      * ``smooth``'s BatchNorm bias: its ReLU'd output reaches the model
+        only through MaxPool(4) and a 1x1 conv before a BatchNorm, so where
+        each window holds a positive entry the bias shifts a channel by a
+        constant;
+      * at batch 1, the decode gate's SE weights: the SE averages each
+        channel of a training-mode BatchNorm's output over the image, which
+        is then that norm's bias, 0 as initialized, and both weights'
+        gradients are products with it."""
+    from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
+    from corrifnet_tpu_torch.nn.conv import Conv
+
+    names = []
+    if isinstance(model, MultiSenseSeg):
+        names += [f"build_pipeline.norm{i}.bias"
+                  for i in range(len(model.build_pipeline.depths) - 1)]
+        names += ["build_MSEs_AMM.smooth.1.bias", "build_decode_head.chan_attn.attn.1.weight",
+                  "build_decode_head.chan_attn.attn.3.weight"]
+    for prefix, module in model.named_modules():
+        if not isinstance(module, nn.Sequential):
+            continue
+        mods = list(module)
+        for i, (a, b) in enumerate(zip(mods, mods[1:])):
+            if isinstance(a, Conv) and a.bias is not None and isinstance(b, BatchNorm):
+                names.append(f"{prefix}.{i}.bias")
+    return names
 
 
 @torch.no_grad()

@@ -5,8 +5,9 @@
         [--batch 4] [--steps 2] [--probe-only]
 
 For each model (``+fused``: built with ``pallas_fused_blocks``), at
-224x224, bf16 compute, transformer dropout 0.1, Adam, random weights from
-seed 0 and a random batch on the card:
+224x224, bf16 compute, transformer dropout 0.1 (each zoo model at its own
+fixed rates), Adam, random weights from seed 0 and a random batch on the
+card (one modality and one mask channel for a 4-D model, UNetV2):
 
 1. probe: one training step under ``utils.determinism.deterministic(
    warn_only=True)``; every op that has no deterministic implementation
@@ -35,11 +36,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
+from corrifnet_tpu_torch.models.registry import get_spec  # noqa: E402
 from corrifnet_tpu_torch.nn import DropoutRng  # noqa: E402
 from corrifnet_tpu_torch.train import init_state, make_train_step  # noqa: E402
 from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 
-DEFAULT_MODELS = "MMVit4,MMVit4+fused,MMVit2,mmformer,RFNet,RobustMseg"
+DEFAULT_MODELS = ("MMVit4,MMVit4+fused,MMVit2,mmformer,RFNet,RobustMseg,MultiSenseSeg,"
+                  "UNetV2")
 
 
 def build(name):
@@ -48,18 +51,23 @@ def build(name):
                         pallas_fused_blocks=flag == "fused")
 
 
-def batch(b, seed):
+def batch(b, seed, kind="5d"):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((b, 3, 3, 224, 224), generator=gen, device="cuda")
-    masks = (torch.rand((b, 3, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
+    lead = (b, 3) if kind == "5d" else (b,)
+    x = torch.randn((*lead, 3, 224, 224), generator=gen, device="cuda")
+    masks = (torch.rand((*lead, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
     return x, masks, torch.ones(b, device="cuda")
 
 
-def train(model, steps, b):
+def train(model, steps, b, kind):
     """``steps`` Adam steps from dropout seed 0; the losses."""
     model.set_dropout_rng(DropoutRng(0, "cuda"))
     step = make_train_step(init_state(model, "Adam"))
-    return torch.stack([step(*batch(b, i), 1e-4)[0] for i in range(steps)])
+    return torch.stack([step(*batch(b, i, kind), 1e-4)[0] for i in range(steps)])
+
+
+def kind_of(name):
+    return get_spec(name.partition("+")[0]).input_kind
 
 
 def probe(name, b):
@@ -68,7 +76,7 @@ def probe(name, b):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with deterministic(warn_only=True):
-            train(model, 1, b)
+            train(model, 1, b, kind_of(name))
             torch.cuda.synchronize()
     return sorted({str(w.message).split("\n")[0] for w in caught
                    if "deterministic" in str(w.message)})
@@ -79,7 +87,7 @@ def repeat(name, steps, b):
     first = build(name)
     second = copy.deepcopy(first)
     with deterministic():
-        losses = [train(m, steps, b) for m in (first, second)]
+        losses = [train(m, steps, b, kind_of(name)) for m in (first, second)]
         torch.cuda.synchronize()
     sa, sb = first.state_dict(), second.state_dict()
     state = max((sa[k].double() - sb[k].double()).abs().max().item() for k in sa)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time and profile the port's evaluation forward (MMVit4, MMVit2,
-mmformer, RFNet or RobustMseg) on one NVIDIA GPU, under the entry points'
-``deterministic()`` scope.
+mmformer, RFNet, RobustMseg, MultiSenseSeg or UNetV2, the last on one
+modality) on one NVIDIA GPU, under the entry points' ``deterministic()``
+scope.
 
     python3 scripts/profile_torch_eval.py [--batch 8] [--iters 10]
-        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg] [--fused] [--lean none|true|false]
+        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg|MultiSenseSeg|UNetV2]
+        [--fused] [--lean none|true|false]
         [--out DIR]
 
 At 224x224, bf16 compute, random weights from seed 0 (``--fused``: with
@@ -40,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
+from corrifnet_tpu_torch.models.registry import get_spec  # noqa: E402
 from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 
 
@@ -298,7 +301,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-forwards", type=int, default=3)
-    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg"),
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg",
+                                        "MultiSenseSeg", "UNetV2"),
                     default="MMVit4",
                     help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
@@ -323,7 +327,9 @@ def main(argv=None):
     model = create_model(args.model, dtype=torch.bfloat16, device="cuda", seed=0,
                          pallas_fused_blocks=args.fused, decoder_lean=LEAN[args.lean])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((args.batch, 3, 3, 224, 224), generator=gen, device="cuda")
+    lead = (args.batch, 3) if get_spec(args.model).input_kind == "5d" else (args.batch,)
+    x = torch.randn((*lead, 3, 224, 224), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
 
     for label in ("plain", "kernels", "kernels", "plain"):
         ctx = plain_versions() if label == "plain" else contextlib.nullcontext()
@@ -332,6 +338,8 @@ def main(argv=None):
         lines.append(f"forward with {label:7s}: median {med:.3f} ms (min {lo:.3f}, "
                      f"max {hi:.3f}) -> {args.batch * 1000.0 / med:.2f} images/s")
         print(lines[-1], flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    lines.append(f"peak memory allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)")
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

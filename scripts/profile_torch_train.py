@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time and profile the port's training step (MMVit4, MMVit2, mmformer,
-RFNet or RobustMseg) on one NVIDIA GPU, under the entry points'
-``deterministic()`` scope.
+RFNet, RobustMseg, MultiSenseSeg or UNetV2, the last on one modality) on one
+NVIDIA GPU, under the entry points' ``deterministic()`` scope.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--iters 10]
-        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg] [--fused] [--lean none|true|false]
+        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg|MultiSenseSeg|UNetV2]
+        [--fused] [--lean none|true|false]
         [--out DIR]
 
 At 224x224, bf16 compute over f32 parameters, transformer dropout 0.1,
@@ -46,6 +47,7 @@ from profile_torch_eval import (LEAN, busy_share, device_time_by_kind,  # noqa: 
 
 from corrifnet_tpu_torch import ops  # noqa: E402
 from corrifnet_tpu_torch.models import create_model  # noqa: E402
+from corrifnet_tpu_torch.models.registry import get_spec  # noqa: E402
 from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 from corrifnet_tpu_torch.nn import DropoutRng  # noqa: E402
 from corrifnet_tpu_torch.train import init_state, make_train_step  # noqa: E402
@@ -57,7 +59,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
-    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg"),
+    ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg",
+                                        "MultiSenseSeg", "UNetV2"),
                     default="MMVit4",
                     help="the modeltype to profile")
     ap.add_argument("--fused", action="store_true",
@@ -76,7 +79,8 @@ def main(argv=None):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     lines = [card, f"torch {torch.__version__}, {args.model}, batch {args.batch}, "
-                   f"224x224, bf16, dropout 0.1, Adam, pallas_fused_blocks "
+                   f"224x224, bf16, transformer dropout 0.1 (a zoo model: its own "
+                   f"fixed rates), Adam, pallas_fused_blocks "
                    f"{args.fused}, decoder_lean {LEAN[args.lean]}"]
 
     model = create_model(args.model, dtype=torch.bfloat16, device="cuda", seed=0,
@@ -85,8 +89,9 @@ def main(argv=None):
     step = make_train_step(init_state(model, "Adam"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     b = args.batch
-    x = torch.randn((b, 3, 3, 224, 224), generator=gen, device="cuda")
-    masks = (torch.rand((b, 3, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
+    lead = (b, 3) if get_spec(args.model).input_kind == "5d" else (b,)
+    x = torch.randn((*lead, 3, 224, 224), generator=gen, device="cuda")
+    masks = (torch.rand((*lead, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
     valid = torch.ones(b, device="cuda")
 
     for _ in range(3):

@@ -890,19 +890,26 @@ def test_conv_family_on_the_card_matches_the_cpu(cuda, name):
     assert {n: w.launches for n, w in ops.KERNELS.items()} == counts
 
 
-@pytest.mark.parametrize("name", ["RFNet", "RobustMseg"])
+def _image_shape(name, b, hw):
+    """The input shape of ``name``'s kind: (b, 3, 3, hw, hw) or (b, 3, hw, hw)."""
+    from corrifnet_tpu_torch.models.registry import get_spec
+
+    return (b, 3, 3, hw, hw) if get_spec(name).input_kind == "5d" else (b, 3, hw, hw)
+
+
+@pytest.mark.parametrize("name", ["RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2"])
 def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
-    """RFNet and RobustMseg at B=1 on a 64x64 input in f32 (RFNet's cascade
-    runs at its fixed 16^3-128^3 volumes whatever the input), the card
-    against the CPU, same weights: within 1e-4 or twice the CPU's own change
-    under a 1e-6 change of the input; a bf16 forward and a training step at
-    B=2 launch none of the port's kernels (the JAX package runs none on
-    these models)."""
+    """RFNet, RobustMseg, MultiSenseSeg and UNetV2 (4-D input) at B=1 on a
+    64x64 input in f32 (RFNet's cascade runs at its fixed 16^3-128^3 volumes
+    whatever the input), the card against the CPU, same weights: within
+    1e-4 or twice the CPU's own change under a 1e-6 change of the input; a
+    bf16 forward and a training step at B=2 launch none of the port's
+    kernels (the JAX package runs none on these models)."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.nn import DropoutRng
 
     cpu = create_model(name, dtype=torch.float32, device="cpu", seed=0)
-    x = torch.randn((1, 3, 3, 64, 64), generator=torch.Generator().manual_seed(0))
+    x = torch.randn(_image_shape(name, 1, 64), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         want = cpu(x)
         witness = (cpu(x * (1 + 1e-6)) - want).abs().max().item()
@@ -914,21 +921,21 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
     for wrapper in ops.KERNELS.values():
         wrapper.launches = 0
     with torch.no_grad():
-        out = model(torch.zeros(2, 3, 3, 64, 64, device="cuda"))
+        out = model(torch.zeros(_image_shape(name, 2, 64), device="cuda"))
     model.train()
-    model(torch.randn(2, 3, 3, 64, 64, device="cuda")).float().mean().backward()
+    model(torch.randn(_image_shape(name, 2, 64), device="cuda")).float().mean().backward()
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     assert all(w.launches == 0 for w in ops.KERNELS.values())
 
 
-@pytest.mark.parametrize("name", ["MMVit4", "RFNet"])
+@pytest.mark.parametrize("name", ["MMVit4", "RFNet", "MultiSenseSeg", "UNetV2"])
 def test_two_training_steps_repeat_their_bits(cuda, name):
-    """Two B=4 bf16 training steps at 224x224 (dropout 0.1 where the model
-    has it, Adam) from the same state, twice, under the entry points'
-    ``deterministic()`` scope: every parameter, buffer and loss equal bit
-    for bit (ROADMAP F5: before the scope and the port's own max-pool
-    backward they were not)."""
+    """Two B=4 bf16 training steps at 224x224 (the model's dropout on, Adam)
+    from the same state, twice, under the entry points' ``deterministic()``
+    scope: every parameter, buffer and loss equal bit for bit (ROADMAP F5:
+    before the scope and the port's own max-pool backward they were not).
+    UNetV2 takes one modality and its masks one channel."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.nn import DropoutRng
     from corrifnet_tpu_torch.train import init_state, make_train_step
@@ -937,8 +944,10 @@ def test_two_training_steps_repeat_their_bits(cuda, name):
     first = create_model(name, dtype=torch.bfloat16, device="cuda", seed=0)
     second = copy.deepcopy(first)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((2, 4, 3, 3, 224, 224), generator=gen, device="cuda")
-    masks = (torch.rand((2, 4, 3, 1, 224, 224), generator=gen, device="cuda") > 0.7).float()
+    shape = _image_shape(name, 4, 224)
+    x = torch.randn((2, *shape), generator=gen, device="cuda")
+    mask_shape = (*shape[:-3], 1, 224, 224)
+    masks = (torch.rand((2, *mask_shape), generator=gen, device="cuda") > 0.7).float()
     valid = torch.ones(4, device="cuda")
     losses = []
     with deterministic():
@@ -951,3 +960,29 @@ def test_two_training_steps_repeat_their_bits(cuda, name):
     b = second.state_dict()
     for key, value in first.state_dict().items():
         assert torch.equal(value, b[key]), key
+
+
+@pytest.mark.parametrize("window,model", [(2, "UNetV2"), (4, "MultiSenseSeg"),
+                                          (8, "MultiSenseSeg")])
+def test_max_pool_2d_backward_on_the_card_equals_the_cpu(cuda, window, model):
+    """The 2-D max pool's own backward (``nn.resize.max_pool`` on a depth-1
+    view) on ReLU outputs, whose windows often hold only zeros (UNetV2's
+    2x2 down paths, MultiSenseSeg's decode gate 4x4 and AMM 8x8, at their
+    224 shapes), and on windows of one constant: forward and gradient on the
+    card equal the CPU's bit for bit (the first largest entry of a window
+    takes its gradient on both), and the gradient repeats its bits."""
+    from corrifnet_tpu_torch.nn import max_pool
+
+    shape = {2: (4, 64, 224, 224), 4: (4, 32, 224, 224), 8: (4, 96, 224, 224)}[window]
+    gen = torch.Generator().manual_seed(window)
+    for x in (torch.relu(torch.randn(shape, generator=gen) - 0.5),
+              torch.full(shape, 0.25)):
+        g = torch.randn((shape[0], shape[1], shape[2] // window, shape[3] // window),
+                        generator=gen)
+        outs = []
+        for dev in ("cpu", "cuda", "cuda"):
+            xd = x.to(dev).requires_grad_()
+            y = max_pool(xd, (window, window))
+            (gx,) = torch.autograd.grad(y, xd, g.to(dev))
+            outs.append((y.detach().cpu(), gx.cpu()))
+        assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))

@@ -68,7 +68,7 @@ def test_create_model_is_seeded_and_full_size():
 
 def test_create_model_rejects_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("MultiSenseSeg")
+        create_model("Segformer")
 
 
 def test_whole_model_matches_jax(port_model_and_input):
@@ -129,9 +129,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
                 "models.decoder", "models.jax_import", "models.mmformer",
-                "models.mmvit2", "models.mmvit4",
+                "models.mmvit2", "models.mmvit4", "models.multisenseseg",
                 "models.registry", "models.resnet3d", "models.rfnet",
-                "models.robustseg", "nn", "nn.conv",
+                "models.robustseg", "models.unet", "nn", "nn.conv",
                 "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
                 "nn.resize", "nn.transformer", "ops", "ops.attention", "ops.build",
                 "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
@@ -145,6 +145,11 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     with open("cfg.json", "w") as f:
         json.dump({"train_set_size": 10, "synthetic_seed": 0, "dtype": "float32"}, f)
     r = main(["--config", "cfg.json", "--device", "cpu"])
+    assert r["n_images"] == 2 and 0.0 <= r["jaccard_mean"] <= 1.0
+    with open("cfg4.json", "w") as f:  # a 4-D model
+        json.dump({"train_set_size": 10, "synthetic_seed": 0, "dtype": "float32",
+                   "modeltype": "UNetV2", "chindex": "2"}, f)
+    r = main(["--config", "cfg4.json", "--device", "cpu"])
     assert r["n_images"] == 2 and 0.0 <= r["jaccard_mean"] <= 1.0
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("OK")

@@ -1,0 +1,183 @@
+"""MultiSenseSeg through the port's two entry points, on the CPU.
+
+* ``run.main`` with ``modeltype`` MultiSenseSeg writes its run directory,
+  with the default ``transfertype='notr'`` re-initializing the 91 conv
+  kernels that the JAX package does (and the final checkpoint loads back as
+  MultiSenseSeg weights, and as no other model's);
+* ``run.evaluate --weights`` with a JAX ``.npz`` of MultiSenseSeg gives the
+  probabilities of JAX's ``MultiSenseSeg.apply`` on the same images;
+* ``run.evaluate.load_weights`` reads a reference ``.pt`` (BatchNorm step
+  counters, the window attentions' relative position indices and AMM's
+  offset table in it, the tables checked against the port's own);
+* what the port refuses stays refused.
+"""
+
+from __future__ import annotations
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from corrifnet_tpu.models import torch_import as ti
+from corrifnet_tpu_torch.models import create_model
+from corrifnet_tpu_torch.models.jax_import import flatten_variables
+from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
+
+MODEL_ATOL = 5e-5  # ROADMAP Queue 3: the f32 whole-model forward bound
+OTHERS = ("MMVit4", "RobustMseg", "UNetV2")
+
+
+def test_training_entry_point_runs_multisenseseg(tmp_path, monkeypatch):
+    """``run.main`` on the CPU with ``modeltype`` MultiSenseSeg in f32 over
+    15 synthetic patches, one epoch of batch 4 (3 steps, the last padded; 1
+    validation patch, 3 test patches), ``initialization`` xavier_normal_
+    under the default ``transfertype='notr'``: the log files, both
+    checkpoints, the dated summary and the segplot family are written, the
+    losses sit in the double-sigmoid band; the final checkpoint is
+    MultiSenseSeg's state_dict, and loads as no other model's."""
+    from corrifnet_tpu_torch import data
+    from corrifnet_tpu_torch.nn.init import apply_reference_init_scheme
+    from corrifnet_tpu_torch.run import main as run_main
+    from corrifnet_tpu_torch.run.evaluate import load_weights
+    from corrifnet_tpu_torch.train import Checkpointer
+
+    monkeypatch.chdir(tmp_path)
+    data.write_permutation(15, ".", seed=0)
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"train_set_size": 15, "fno": 2, "fsiz": 5, "n_epochs": 1,
+         "modeltype": "MultiSenseSeg", "synthetic_seed": 0, "dtype": "float32",
+         "initialization": "xavier_normal_"}))
+    r = run_main.main(["--config", "cfg.json", "--run-root", ".", "--device", "cpu"])
+
+    run_dir = tmp_path / r["run_dir"]
+    for name in ("trainFile", "trainaccFile", "trainepochFile", "valFile", "valaccFile",
+                 "testFile", "testaccFile", "fpsfile"):
+        assert len((run_dir / f"{name}.txt").read_text().splitlines()) == 1, name
+    assert r["train_steps"] == 3
+    for loss in (r["history"]["train_loss"][0], r["history"]["val_loss"][0],
+                 r["test_loss"]):
+        assert 0.5 <= loss <= 1.0
+    summary = next(run_dir.glob("2*_*.txt")).read_text()
+    assert "Model version:MultiSenseSeg" in summary and "Transfer:notr" in summary
+    for name in ("segmentation_image", "test_image", "test_pred_mask", "ground_truth_mask"):
+        assert (run_dir / f"{name}.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name
+    ckpt = Checkpointer(run_dir)
+    assert ckpt.exists("iremmodel0") and ckpt.exists("Finaliremmodel0")
+    final = ckpt.restore("Finaliremmodel0")
+    assert sorted(final) == sorted(create_model("MultiSenseSeg").state_dict())
+    reinit = apply_reference_init_scheme(create_model("MultiSenseSeg"), "xavier_normal_",
+                                         run_main.scheme_generator(0))
+    assert len(reinit) == 91
+    assert sorted(load_weights(run_dir / "Finaliremmodel0", "MultiSenseSeg")) == sorted(final)
+    for other in OTHERS:
+        with pytest.raises(ValueError, match=f"MultiSenseSeg weights, not {other}"):
+            load_weights(run_dir / "Finaliremmodel0", other)
+
+
+def test_evaluate_weights_npz_matches_jax(tmp_path, monkeypatch):
+    """``run.evaluate --weights`` with a JAX ``.npz`` of MultiSenseSeg: the
+    probabilities of the test fold's two images (one batch of 8, padded)
+    equal those of JAX's ``MultiSenseSeg.apply`` on the same images and
+    weights within MODEL_ATOL; the ``.npz`` loaded as another model raises
+    naming both."""
+    from corrifnet_tpu.models.multisenseseg import MultiSenseSeg
+    from corrifnet_tpu_torch import data
+    from corrifnet_tpu_torch.run import evaluate
+
+    monkeypatch.chdir(tmp_path)
+    data.write_permutation(10, ".", seed=0)
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"train_set_size": 10, "modeltype": "MultiSenseSeg", "synthetic_seed": 0,
+         "dtype": "float32"}))
+    variables = ti.multisenseseg_variables_from_state_dict(
+        create_model("MultiSenseSeg", seed=8).state_dict())
+    np.savez(tmp_path / "w.npz", **flatten_variables(variables))
+    outputs = []
+    build = evaluate.create_model
+
+    def create(*args, **kwargs):
+        model = build(*args, **kwargs)
+        model.register_forward_hook(lambda m, a, out: outputs.append(out.detach().numpy()))
+        return model
+
+    monkeypatch.setattr(evaluate, "create_model", create)
+    r = evaluate.main(["--config", "cfg.json", "--weights", "w.npz", "--device", "cpu"])
+    assert r["n_images"] == 2 and r["batch_size"] == 8 and len(outputs) == 1
+
+    tsind, trind, _ = data.cross_val(10, 2, 5)
+    images = data.load_dstl(10, trind, synthetic_seed=0).images[tsind]
+    jm = MultiSenseSeg(dtype=jnp.float32)
+    want = np.asarray(jax.jit(lambda v, xx: jm.apply(v, xx, False))(
+        variables, jnp.asarray(images)))
+    got = outputs[0][:len(tsind)]
+    assert got.shape == want.shape == (2, 3, 1, 224, 224)
+    err = np.abs(got - want).max()
+    print("MultiSenseSeg through run.evaluate against JAX:", err)
+    assert err <= MODEL_ATOL, err
+    for other in OTHERS:
+        with pytest.raises(ValueError, match=f"MultiSenseSeg weights, not {other}"):
+            evaluate.load_weights(tmp_path / "w.npz", other)
+
+
+def _reference_state_dict(model):
+    """The port's state_dict as the reference's module would save it: with
+    BatchNorm's ``num_batches_tracked``, each window attention's
+    ``relative_position_index`` and AMM's ``relative_position_bias``."""
+    from corrifnet_tpu_torch.models import multisenseseg as pm
+
+    sd = dict(model.state_dict())
+    for key in list(sd):
+        if key.endswith(".running_mean"):
+            sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(3)
+        if key.endswith("attn.relative_position_bias_table"):
+            index = pm._relative_position_index(8, 8)
+            sd[key.replace("bias_table", "index")] = torch.from_numpy(index)
+    sd["build_MSEs_AMM.fuse_proj.relative_position_bias"] = torch.from_numpy(
+        pm._amm_relative_bias(96))[None, ..., 0]
+    return sd
+
+
+def test_load_weights_reads_a_reference_pt(tmp_path):
+    """A reference ``.pt`` loads into the port (``strict=True``): BatchNorm's
+    step counters dropped, the static tables checked against the port's and
+    dropped; a table that differs raises naming it."""
+    from corrifnet_tpu_torch.run.evaluate import load_weights
+
+    model = create_model("MultiSenseSeg", seed=2)
+    sd = _reference_state_dict(model)
+    assert len(sd) - len(model.state_dict()) == 96 // 2 + 14 + 1
+    torch.save(sd, tmp_path / "ref.pt")
+    loaded = load_weights(tmp_path / "ref.pt", "MultiSenseSeg")
+    assert sorted(loaded) == sorted(model.state_dict())
+    create_model("MultiSenseSeg").load_state_dict(loaded, strict=True)
+    key = "build_pipeline.layers.0.long_blocks.1.attn.relative_position_index"
+    sd[key] = sd[key].flip(0)
+    torch.save(sd, tmp_path / "bad.pt")
+    with pytest.raises(ValueError, match="relative_position_index differs"):
+        load_weights(tmp_path / "bad.pt", "MultiSenseSeg")
+
+
+_REFUSED = {"fuse_expand_bn": True, "depth_mode": "pruned", "decoder_chunk": 2,
+            "decoder_remat": True, "mesh_shape": [1, 1], "use_pallas": False}
+
+
+@pytest.mark.parametrize("field", sorted(_REFUSED))
+def test_entry_points_refuse(field, tmp_path, monkeypatch):
+    """What the port refuses stays refused with MultiSenseSeg: both entry
+    points raise naming the field before anything is built (``use_pallas=
+    False`` on a CUDA device only, asked of ``run.evaluate`` alone, as for
+    the other models)."""
+    from corrifnet_tpu_torch.run import evaluate, main
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "cfg.json").write_text(json.dumps(
+        {"train_set_size": 15, "synthetic_seed": 0, "modeltype": "MultiSenseSeg",
+         field: _REFUSED[field]}))
+    on_card = field == "use_pallas"
+    for run in (evaluate.main,) if on_card else (main.main, evaluate.main):
+        with pytest.raises(NotImplementedError, match=rf"{field}=.*ROADMAP\.md"):
+            run(["--config", "cfg.json", "--device", "cuda" if on_card else "cpu"])
