@@ -1,6 +1,9 @@
 """Models of the port (counterpart of ``corrifnet_tpu.models``)."""
 
+from corrifnet_tpu_torch.models.deeplabv3p import DeepLabV3Plus
 from corrifnet_tpu_torch.models.jax_import import (
+    deeplab_named_gradients,
+    deeplab_state_dict_from_variables,
     mmvit2_named_gradients,
     mmvit2_state_dict_from_variables,
     mmvit4_named_gradients,
@@ -11,6 +14,8 @@ from corrifnet_tpu_torch.models.jax_import import (
     rfnet_state_dict_from_variables,
     robustseg_named_gradients,
     robustseg_state_dict_from_variables,
+    segformer_named_gradients,
+    segformer_state_dict_from_variables,
     unetv2_named_gradients,
     unetv2_state_dict_from_variables,
 )
@@ -20,13 +25,16 @@ from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
 from corrifnet_tpu_torch.models.registry import create_model
 from corrifnet_tpu_torch.models.rfnet import RFNet
 from corrifnet_tpu_torch.models.robustseg import RobustMseg
+from corrifnet_tpu_torch.models.segformer import Segformer
 from corrifnet_tpu_torch.models.unet import UNetV2
 
-__all__ = ["MMFormer", "MMVit2", "MMVit4", "MultiSenseSeg", "RFNet", "RobustMseg", "UNetV2",
-           "create_model",
+__all__ = ["DeepLabV3Plus", "MMFormer", "MMVit2", "MMVit4", "MultiSenseSeg", "RFNet",
+           "RobustMseg", "Segformer", "UNetV2", "create_model",
+           "deeplab_named_gradients", "deeplab_state_dict_from_variables",
            "mmvit2_named_gradients", "mmvit2_state_dict_from_variables",
            "mmvit4_named_gradients", "mmvit4_state_dict_from_variables",
            "multisenseseg_named_gradients", "multisenseseg_state_dict_from_variables",
            "rfnet_named_gradients", "rfnet_state_dict_from_variables",
            "robustseg_named_gradients", "robustseg_state_dict_from_variables",
+           "segformer_named_gradients", "segformer_state_dict_from_variables",
            "unetv2_named_gradients", "unetv2_state_dict_from_variables"]

@@ -15,10 +15,13 @@ gradients compare tensor by tensor under ``named_parameters()``.
 ``mmvit2_state_dict_from_variables`` and ``mmvit2_named_gradients`` do the
 same for MMVit2 and mmformer, inverting
 ``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``;
-``rfnet_*``, ``robustseg_*``, ``multisenseseg_*`` and ``unetv2_*`` invert
-``rfnet_variables_from_state_dict``, ``robustseg_variables_from_state_dict``,
-``multisenseseg_variables_from_state_dict`` and
-``unetv2_variables_from_state_dict``.
+``rfnet_*``, ``robustseg_*``, ``multisenseseg_*``, ``unetv2_*``,
+``segformer_*`` and ``deeplab_*`` invert ``rfnet_variables_from_state_dict``,
+``robustseg_variables_from_state_dict``,
+``multisenseseg_variables_from_state_dict``,
+``unetv2_variables_from_state_dict``,
+``segformer_variables_from_state_dict`` and
+``deeplab_variables_from_state_dict``.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW), and 2-D ones
@@ -38,7 +41,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from corrifnet_tpu_torch.models.deeplabv3p import XCEPTION_BLOCKS, rep_layout
+from corrifnet_tpu_torch.models.segformer import STAGE_KSP
+
 __all__ = [
+    "deeplab_named_gradients",
+    "deeplab_state_dict_from_variables",
     "flatten_variables",
     "mmvit2_named_gradients",
     "mmvit2_state_dict_from_variables",
@@ -50,6 +58,8 @@ __all__ = [
     "rfnet_state_dict_from_variables",
     "robustseg_named_gradients",
     "robustseg_state_dict_from_variables",
+    "segformer_named_gradients",
+    "segformer_state_dict_from_variables",
     "unetv2_named_gradients",
     "unetv2_state_dict_from_variables",
     "unflatten_variables",
@@ -511,6 +521,105 @@ def unetv2_named_gradients(grads) -> Dict[str, torch.Tensor]:
     """A JAX gradient tree of UNetV2's ``params`` -> {port parameter name:
     gradient}, as ``mmvit4_named_gradients``."""
     return unetv2_state_dict_from_variables({"params": grads})
+
+
+def segformer_state_dict_from_variables(variables, debug_variant: bool = False
+                                        ) -> Dict[str, torch.Tensor]:
+    """JAX Segformer ``variables`` -> port state_dict under the reference's
+    names: each patch embed's (k, k, I, O) kernel as the reference's
+    ``(O, I*k*k, 1, 1)`` 1x1 weight, the ChannelNorms' ``g``/``b`` as
+    ``(1, C, 1, 1)``; the head as ``to_segmentation.{0,1}``, or with
+    ``debug_variant`` the orphan F32 model's ``to_segmentation1/2``."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for si, (k, _, _) in enumerate(STAGE_KSP):
+        embed = np.asarray(params[f"s{si}_embed"]["kernel"])
+        sd[f"mit.stages.{si}.1.weight"] = _t(
+            np.transpose(embed, (3, 2, 0, 1)).reshape(embed.shape[3], -1, 1, 1))
+        sd[f"mit.stages.{si}.1.bias"] = _t(params[f"s{si}_embed"]["bias"])
+        li = 0
+        while f"s{si}_l{li}_attn" in params:
+            base, name = f"mit.stages.{si}.2.{li}", f"s{si}_l{li}"
+            for j, norm in ((0, "norm1"), (1, "norm2")):
+                for leaf in ("g", "b"):
+                    sd[f"{base}.{j}.norm.{leaf}"] = _t(
+                        np.asarray(params[f"{name}_{norm}"][leaf]).reshape(1, -1, 1, 1))
+            for conv in ("to_q", "to_kv", "to_out"):
+                _put(sd, f"{base}.0.fn.{conv}", params[f"{name}_attn"][conv], _conv_weight)
+            ff = params[f"{name}_ff"]
+            for conv, key in (("fc1", "0"), ("dw", "1.net.0"), ("pw", "1.net.1"), ("fc2", "3")):
+                _put(sd, f"{base}.1.fn.net.{key}", ff[conv], _conv_weight)
+            li += 1
+        _put(sd, f"to_fused.{si}.0", params[f"fuse{si}"], _conv_weight)
+    head = ("to_segmentation1", "to_segmentation2") if debug_variant else (
+        "to_segmentation.0", "to_segmentation.1")
+    _put(sd, head[0], params["seg1"], _conv_weight)
+    _put(sd, head[1], params["seg2"], _conv_weight)
+    return sd
+
+
+def segformer_named_gradients(grads, debug_variant: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of Segformer's ``params`` -> {port parameter
+    name: gradient}, as ``mmvit4_named_gradients``."""
+    return segformer_state_dict_from_variables({"params": grads}, debug_variant)
+
+
+def _sepconv(sd, key, params):
+    """SeparableConvSame {dw, pw} -> ``{key}.conv1`` and ``{key}.pointwise``."""
+    _put(sd, f"{key}.conv1", params["dw"], _conv_weight)
+    _put(sd, f"{key}.pointwise", params["pw"], _conv_weight)
+
+
+def deeplab_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX DeepLabV3Plus ``variables`` -> port state_dict under the
+    reference's names: each Xception block's ``sep{j}``/``bn{j}`` at its
+    place in the ``rep`` Sequential, ReLUs counted (``rep_layout``);
+    ``aspp{i}``/``aspp{i}_bn`` as ``aspp{i}.atrous_convolution`` and
+    ``.batch_norm``; ``image_pool.1``, ``fc1.{0,1}``, ``reduce_conv2.{0,1}``
+    and ``last_conv.{0,1,4,5,8}``."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+    xp, xs, x = params["xception"], _child(stats, "xception"), "xception_features"
+    for name in ("conv1", "conv2"):
+        _put(sd, f"{x}.{name}", xp[name], _conv_weight)
+    for name in ("bn1", "bn2"):
+        _bn(sd, f"{x}.{name}", xp[name], _child(xs, name))
+    for name, (_, reps, stride, swr, grow, last) in XCEPTION_BLOCKS.items():
+        bp, bs, key = xp[name], _child(xs, name), f"{x}.{name}"
+        seq = rep_layout(reps, stride, swr, grow, last)
+        j = 0
+        for pos, kind in enumerate(seq):
+            if kind != "sep":
+                continue
+            _sepconv(sd, f"{key}.rep.{pos}", bp[f"sep{j}"])
+            if pos + 1 < len(seq) and seq[pos + 1] == "bn":
+                _bn(sd, f"{key}.rep.{pos + 1}", bp[f"bn{j}"], _child(bs, f"bn{j}"))
+            j += 1
+        if "skip" in bp:
+            _put(sd, f"{key}.skip", bp["skip"], _conv_weight)
+            _bn(sd, f"{key}.skipbn", bp["skipbn"], _child(bs, "skipbn"))
+    for i in (3, 4, 5):
+        _sepconv(sd, f"{x}.conv{i}", xp[f"conv{i}"])
+        _bn(sd, f"{x}.bn{i}", xp[f"bn{i}"], _child(xs, f"bn{i}"))
+    for i in range(1, 5):
+        _put(sd, f"aspp{i}.atrous_convolution", params[f"aspp{i}"], _conv_weight)
+        _bn(sd, f"aspp{i}.batch_norm", params[f"aspp{i}_bn"], _child(stats, f"aspp{i}_bn"))
+    _put(sd, "image_pool.1", params["image_pool"], _conv_weight)
+    for conv, norm in (("fc1", "fc1_bn"), ("reduce_conv2", "reduce_bn")):
+        _put(sd, f"{conv}.0", params[conv], _conv_weight)
+        _bn(sd, f"{conv}.1", params[norm], _child(stats, norm))
+    for j, (ci, bi) in enumerate(((0, 1), (4, 5))):
+        _put(sd, f"last_conv.{ci}", params[f"last_conv{j}"], _conv_weight)
+        _bn(sd, f"last_conv.{bi}", params[f"last_bn{j}"], _child(stats, f"last_bn{j}"))
+    _put(sd, "last_conv.8", params["classifier"], _conv_weight)
+    return sd
+
+
+def deeplab_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of DeepLabV3Plus's ``params`` -> {port parameter
+    name: gradient}, as ``mmvit4_named_gradients``."""
+    return deeplab_state_dict_from_variables({"params": grads})
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

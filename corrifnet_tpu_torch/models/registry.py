@@ -2,9 +2,10 @@
 
 Counterpart of ``corrifnet_tpu/models/registry.py``: a table of specs (name,
 factory, input kind, the model options it takes). MMVit4 (CorrIFNet), MMVit2,
-mmformer, RFNet, RobustMseg and MultiSenseSeg (5-D input) and UNetV2 (4-D
-input: one modality, chosen by the config's ``chindex``) are ported; every
-other model of the JAX package's zoo is still to be ported (see ROADMAP.md).
+mmformer, RFNet, RobustMseg and MultiSenseSeg (5-D input) and UNetV2,
+Segformer and DeepLabv3_plus (4-D input: one modality, chosen by the
+config's ``chindex``) are ported; every other model of the JAX package's zoo
+is still to be ported (see ROADMAP.md).
 A factory takes the compute ``dtype``, ``transformer_dropout`` and the
 options its spec names as keywords and returns a module with
 ``compute_dtype``, ``reset_parameters(generator)`` and
@@ -22,11 +23,13 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from corrifnet_tpu_torch.models.deeplabv3p import DeepLabV3Plus
 from corrifnet_tpu_torch.models.mmvit2 import MMFormer, MMVit2
 from corrifnet_tpu_torch.models.mmvit4 import MMVit4
 from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
 from corrifnet_tpu_torch.models.rfnet import RFNet
 from corrifnet_tpu_torch.models.robustseg import RobustMseg
+from corrifnet_tpu_torch.models.segformer import Segformer
 from corrifnet_tpu_torch.models.unet import UNetV2
 
 __all__ = ["ModelSpec", "create_model", "get_spec"]
@@ -52,6 +55,8 @@ _REGISTRY: Dict[str, ModelSpec] = {
     "RobustMseg": ModelSpec("RobustMseg", RobustMseg, "5d", options=()),
     "MultiSenseSeg": ModelSpec("MultiSenseSeg", MultiSenseSeg, "5d", options=()),
     "UNetV2": ModelSpec("UNetV2", UNetV2, "4d", options=()),
+    "Segformer": ModelSpec("Segformer", Segformer, "4d", options=()),
+    "DeepLabv3_plus": ModelSpec("DeepLabv3_plus", DeepLabV3Plus, "4d", options=()),
 }
 
 

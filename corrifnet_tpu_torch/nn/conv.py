@@ -45,11 +45,13 @@ class Conv(nn.Module):
     'replicate'. ``groups`` splits the channels into that many blocks, as
     PyTorch's and the JAX ``Conv``'s ``groups`` do (MultiSenseSeg's grouped
     1x1 and depthwise 3x3 convs); the weight is ``(out, in / groups,
-    *kernel)`` and its fan-in that of one group."""
+    *kernel)`` and its fan-in that of one group. ``dilation`` spaces the
+    taps, as PyTorch's and the JAX ``Conv``'s do (DeepLabv3_plus's atrous
+    convs)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=True, padding_mode="zeros", dims=3,
-                 kernel_init="kaiming_normal", groups=1):
+                 kernel_init="kaiming_normal", groups=1, dilation=1):
         super().__init__()
         if padding_mode not in ("zeros", "replicate"):
             raise ValueError(f"padding_mode {padding_mode!r}")
@@ -58,6 +60,7 @@ class Conv(nn.Module):
         if in_channels % groups or out_channels % groups:
             raise ValueError(f"{in_channels} -> {out_channels} channels in {groups} groups")
         self.groups = groups
+        self.dilation = _tuple(dilation, dims)
         self.stride = _tuple(stride, dims)
         self.padding = _tuple(padding, dims)
         self.padding_mode = padding_mode
@@ -66,6 +69,11 @@ class Conv(nn.Module):
             torch.empty(out_channels, in_channels // groups, *_tuple(kernel_size, dims))
         )
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def kernel(self):
+        """The weight as an ``(out, in / groups, *kernel)`` tensor (a view),
+        the layout whose fans the ``notr`` re-initialization draws with."""
+        return self.weight
 
     def reset_parameters(self, generator):
         if self.kernel_init == "kaiming_normal":
@@ -95,8 +103,8 @@ class Conv(nn.Module):
             if self.padding_mode == "replicate":
                 x = replicate_pad(x, [(p, p) for p in self.padding])
             return (x,), x.shape[0]
-        if (self.weight.shape[2] != 3 or self.padding[0] != 1
-                or self.stride != (1, 1, 1) or self.groups != 1):
+        if (self.weight.shape[2] != 3 or self.padding[0] != 1 or self.stride != (1, 1, 1)
+                or self.groups != 1 or self.dilation != (1, 1, 1)):
             raise ValueError("depth fusion needs a stride-1 conv with 3 depth "
                              f"taps and depth padding 1, not {tuple(self.weight.shape)}")
         parts = x if depth_fuse[0] == "nearest" else (x,)
@@ -111,9 +119,9 @@ class Conv(nn.Module):
         if depth_fuse is None:
             padding = 0 if self.padding_mode == "replicate" else self.padding
             conv = F.conv3d if w.dim() == 5 else F.conv2d
-            if self.groups == 1:
+            if self.groups == 1 and set(self.dilation) == {1}:
                 return conv(parts[0], w, bias, self.stride, padding)
-            return conv(parts[0], w, bias, self.stride, padding, groups=self.groups)
+            return conv(parts[0], w, bias, self.stride, padding, self.dilation, self.groups)
         kind, dst_d = depth_fuse
         if kind == "linear":
             return expand_conv(parts, [w], ["linear"], batch, dst_d,

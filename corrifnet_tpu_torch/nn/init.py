@@ -12,7 +12,10 @@ conv kernels, the biases beside them zeroed. It re-initializes the tensors
 the JAX package's does: kernels of exactly 4 axes in its parameter tree,
 which leaves out the per-modality modules it stacks on a leading modality
 axis (a model names those in ``JAX_STACKED``), though the reference
-re-initializes every Conv2d.
+re-initializes every Conv2d. Each kernel is drawn in the layout its
+``Conv.kernel()`` gives, whose fans are the JAX kernel's: Segformer's
+patch embeds, kept as the reference's ``(O, I*k*k, 1, 1)`` 1x1 weights,
+draw as the ``(O, I, k, k)`` convs that the JAX package holds.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ def apply_reference_init_scheme(model, scheme: str, generator: torch.Generator):
     for name, module in model.named_modules():
         if (isinstance(module, Conv) and module.weight.dim() == 4
                 and not (name + ".").startswith(stacked)):
-            init(module.weight, generator)
+            init(module.kernel(), generator)
             if module.bias is not None:
                 module.bias.zero_()
             names.append(f"{name}.weight")

@@ -154,10 +154,15 @@ class _ResizeNearest(torch.autograd.Function):
 
 
 def resize_nearest(x, size: Sequence[int]):
-    """PyTorch's default (nearest) resize: source index floor(dst * src / dst)."""
+    """PyTorch's default (nearest) resize of NCDHW (or NCHW) input: source
+    index floor(dst * src / dst). NCHW runs on a depth-1 view, so that it
+    keeps the backward above (DeepLabv3_plus's image pool, Segformer's
+    debug fusion)."""
     size = tuple(size)
     if tuple(x.shape[2:]) == size:
         return x
+    if x.dim() == 4:
+        return _ResizeNearest.apply(x.unsqueeze(2), (1, *size)).squeeze(2)
     return _ResizeNearest.apply(x, size)
 
 

@@ -4,17 +4,19 @@ Counterpart of ``corrifnet_tpu/run/evaluate.py:39-177``, on the port's own
 config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack or
 synthetic) -> batches of
 ``max(mini_batch_size, 8)`` -> forward -> per-image (jaccard2, f1) on
-modality channel 0 -> mean and std. A 4-D model (UNetV2) is given modality 0
-and channel 0 of the masks *whatever the config's* ``chindex`` (the JAX
-package's ``evaluate_run`` does so, ``corrifnet_tpu/run/evaluate.py:99-100``):
-a 4-D model trained on NIR is evaluated on RGB (ROADMAP.md, "Not faults").
+modality channel 0 -> mean and std. A 4-D model (UNetV2, Segformer,
+DeepLabv3_plus) is given modality 0 and channel 0 of the masks *whatever the
+config's* ``chindex`` (the JAX package's ``evaluate_run`` does so,
+``corrifnet_tpu/run/evaluate.py:99-100``): a 4-D model trained on NIR is
+evaluated on RGB (ROADMAP.md, "Not faults").
 
 Weights: ``--weights`` takes a ``.npz`` of the flattened JAX variable tree
 (``/``-joined keys, e.g. ``params/encoders/conv6/kernel``) of the config's
-``modeltype`` (MMVit4, MMVit2, mmformer, RFNet, RobustMseg, MultiSenseSeg or
-UNetV2), converted by ``models.jax_import``, or a ``.pt`` ``state_dict``:
-the port's, or the reference's (its BatchNorm step counters and dead
-up-sampling weights dropped, its static tables checked against the port's).
+``modeltype`` (MMVit4, MMVit2, mmformer, RFNet, RobustMseg, MultiSenseSeg,
+UNetV2, Segformer or DeepLabv3_plus), converted by ``models.jax_import``, or a
+``.pt`` ``state_dict``: the port's, or the reference's (its BatchNorm step
+counters and dead up-sampling weights dropped, its static tables checked
+against the port's).
 Without it the model is initialized from ``cfg.seed``.
 
     python -m corrifnet_tpu_torch.run.evaluate --config model0.txt \
@@ -37,11 +39,13 @@ from corrifnet_tpu_torch.data import cross_val, load_dstl, make_batches
 from corrifnet_tpu_torch.metrics import jaccard_f1_pair
 from corrifnet_tpu_torch.models import (
     create_model,
+    deeplab_state_dict_from_variables,
     mmvit2_state_dict_from_variables,
     mmvit4_state_dict_from_variables,
     multisenseseg_state_dict_from_variables,
     rfnet_state_dict_from_variables,
     robustseg_state_dict_from_variables,
+    segformer_state_dict_from_variables,
     unetv2_state_dict_from_variables,
 )
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
@@ -69,14 +73,17 @@ _CONVERTERS = {
     "RobustMseg": robustseg_state_dict_from_variables,
     "MultiSenseSeg": multisenseseg_state_dict_from_variables,
     "UNetV2": unetv2_state_dict_from_variables,
+    "Segformer": segformer_state_dict_from_variables,
+    "DeepLabv3_plus": deeplab_state_dict_from_variables,
 }
 
 
 def _npz_model(params):
     """Which of the ported models a JAX ``params`` tree is (None: none of
     them): MMVit4 has the fused6 group, RFNet the region map generators,
-    RobustMseg the content encoders, MultiSenseSeg AMM, UNetV2 ``outc``; of
-    the conv-encoder family, mmformer's unused qkv leaves are zero."""
+    RobustMseg the content encoders, MultiSenseSeg AMM, UNetV2 ``outc``,
+    Segformer its first patch embed, DeepLabv3_plus its Xception; of the
+    conv-encoder family, mmformer's unused qkv leaves are zero."""
     if "fused6_pos" in params:
         return "MMVit4"
     if "prm_generator4" in params:
@@ -87,6 +94,10 @@ def _npz_model(params):
         return "MultiSenseSeg"
     if "outc" in params:
         return "UNetV2"
+    if "s0_embed" in params:
+        return "Segformer"
+    if "xception" in params:
+        return "DeepLabv3_plus"
     qkv = params.get("modality_stream", {}).get("qkv")
     if "multimodal_decode_conv" not in params or qkv is None:
         return None
@@ -105,6 +116,10 @@ def _state_dict_model(keys):
         return "MultiSenseSeg"
     if "outc.conv.weight" in keys:
         return "UNetV2"
+    if "mit.stages.0.1.weight" in keys:
+        return "Segformer"
+    if "xception_features.conv1.weight" in keys:
+        return "DeepLabv3_plus"
     if "RGB_encoder.e1_c1.weight" not in keys:
         return None
     return "MMVit2" if "qkv_RGB.weight" in keys else "mmformer"

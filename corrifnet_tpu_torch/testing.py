@@ -20,13 +20,26 @@ __all__ = ["block_train_step", "calibrate_batchnorm", "rel_max",
            "well_conditioned_block", "zero_gradients"]
 
 
-def zero_gradients(model: nn.Module):
-    """The names of the parameters whose gradient in training mode is 0 but
-    for rounding, to be held by size and not by relative error: with batch
-    statistics a ``BatchNorm`` takes out again what adds a constant to each
-    of its channels. These are the conv biases that feed a BatchNorm
-    directly (the next module of the same Sequential: MultiSenseSeg's seven,
-    each of UNetV2's), and in MultiSenseSeg:
+def zero_gradients(model: nn.Module, batch: int = 1):
+    """The names of the parameters whose gradient in a training-mode step at
+    ``batch`` is 0 but for rounding, to be held by size and not by relative
+    error: with batch statistics a ``BatchNorm`` takes out again what adds a
+    constant to each of its channels. These are the conv biases that feed a
+    BatchNorm directly (the next module of the same Sequential:
+    MultiSenseSeg's seven, each of UNetV2's, DeepLabv3_plus's ``fc1.0``,
+    ``reduce_conv2.0``, ``last_conv.0`` and ``last_conv.4``); in
+    DeepLabv3_plus:
+
+      * the ASPP convs' biases (each feeds its ``batch_norm``, an attribute
+        pair), and the ASPP BatchNorms' own biases: the branches reach fc1's
+        BatchNorm through the 1x1 ``fc1.0`` alone, so a constant added to one
+        of their channels adds a constant to fc1's channels;
+      * ``image_pool.1.bias``, for the same reason; at batch 1
+        ``image_pool.1.weight`` too, the pooled branch being then one
+        constant per channel (``fc1.0.weight``'s pooled columns are 0 but for
+        rounding as well, inside a live tensor);
+
+    and in MultiSenseSeg:
 
       * the LayerNorm biases of the stages whose output reaches a BatchNorm
         through a 1x1 conv alone (the FPN's laterals: every stage but the
@@ -39,6 +52,7 @@ def zero_gradients(model: nn.Module):
         channel of a training-mode BatchNorm's output over the image, which
         is then that norm's bias, 0 as initialized, and both weights'
         gradients are products with it."""
+    from corrifnet_tpu_torch.models.deeplabv3p import ASPP_RATES, DeepLabV3Plus
     from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
     from corrifnet_tpu_torch.nn.conv import Conv
 
@@ -46,8 +60,14 @@ def zero_gradients(model: nn.Module):
     if isinstance(model, MultiSenseSeg):
         names += [f"build_pipeline.norm{i}.bias"
                   for i in range(len(model.build_pipeline.depths) - 1)]
-        names += ["build_MSEs_AMM.smooth.1.bias", "build_decode_head.chan_attn.attn.1.weight",
-                  "build_decode_head.chan_attn.attn.3.weight"]
+        names.append("build_MSEs_AMM.smooth.1.bias")
+        if batch == 1:
+            names += ["build_decode_head.chan_attn.attn.1.weight",
+                      "build_decode_head.chan_attn.attn.3.weight"]
+    if isinstance(model, DeepLabV3Plus):
+        names += [f"aspp{i + 1}.{m}.bias" for i in range(len(ASPP_RATES))
+                  for m in ("atrous_convolution", "batch_norm")]
+        names += ["image_pool.1.bias"] + (["image_pool.1.weight"] if batch == 1 else [])
     for prefix, module in model.named_modules():
         if not isinstance(module, nn.Sequential):
             continue

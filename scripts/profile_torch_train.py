@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time and profile the port's training step (MMVit4, MMVit2, mmformer,
-RFNet, RobustMseg, MultiSenseSeg or UNetV2, the last on one modality) on one
-NVIDIA GPU, under the entry points' ``deterministic()`` scope.
+RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer or DeepLabv3_plus, the
+last three on one modality) on one NVIDIA GPU, under the entry points'
+``deterministic()`` scope.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--iters 10]
-        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg|MultiSenseSeg|UNetV2]
+        [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg|MultiSenseSeg|UNetV2|
+                 Segformer|DeepLabv3_plus]
         [--fused] [--lean none|true|false]
         [--out DIR]
 
@@ -60,9 +62,11 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg",
-                                        "MultiSenseSeg", "UNetV2"),
+                                        "MultiSenseSeg", "UNetV2", "Segformer",
+                                        "DeepLabv3_plus"),
                     default="MMVit4",
-                    help="the modeltype to profile")
+                    help="the modeltype to profile (MMVit4, MMVit2, mmformer, RFNet, "
+                    "RobustMseg, MultiSenseSeg, UNetV2, Segformer or DeepLabv3_plus)")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
     ap.add_argument("--lean", choices=sorted(LEAN), default="none",

@@ -897,14 +897,17 @@ def _image_shape(name, b, hw):
     return (b, 3, 3, hw, hw) if get_spec(name).input_kind == "5d" else (b, 3, hw, hw)
 
 
-@pytest.mark.parametrize("name", ["RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2"])
+@pytest.mark.parametrize("name", ["RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2",
+                                  "Segformer", "DeepLabv3_plus"])
 def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
-    """RFNet, RobustMseg, MultiSenseSeg and UNetV2 (4-D input) at B=1 on a
-    64x64 input in f32 (RFNet's cascade runs at its fixed 16^3-128^3 volumes
-    whatever the input), the card against the CPU, same weights: within
-    1e-4 or twice the CPU's own change under a 1e-6 change of the input; a
-    bf16 forward and a training step at B=2 launch none of the port's
-    kernels (the JAX package runs none on these models)."""
+    """RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer and
+    DeepLabv3_plus (the last three 4-D input) at B=1 on a 64x64 input in
+    f32 (RFNet's cascade runs at its fixed 16^3-128^3 volumes whatever the
+    input, Segformer's output at its default 224x224), the card against the
+    CPU, same weights: within 1e-4 or twice the CPU's own change under a
+    1e-6 change of the input; a bf16 forward and a training step at B=2
+    launch none of the port's kernels (the JAX package runs none on these
+    models)."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.nn import DropoutRng
 
@@ -929,13 +932,14 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
     assert all(w.launches == 0 for w in ops.KERNELS.values())
 
 
-@pytest.mark.parametrize("name", ["MMVit4", "RFNet", "MultiSenseSeg", "UNetV2"])
+@pytest.mark.parametrize("name", ["MMVit4", "RFNet", "MultiSenseSeg", "UNetV2", "Segformer",
+                                  "DeepLabv3_plus"])
 def test_two_training_steps_repeat_their_bits(cuda, name):
     """Two B=4 bf16 training steps at 224x224 (the model's dropout on, Adam)
     from the same state, twice, under the entry points' ``deterministic()``
     scope: every parameter, buffer and loss equal bit for bit (ROADMAP F5:
     before the scope and the port's own max-pool backward they were not).
-    UNetV2 takes one modality and its masks one channel."""
+    The 4-D models take one modality and their masks one channel."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.nn import DropoutRng
     from corrifnet_tpu_torch.train import init_state, make_train_step

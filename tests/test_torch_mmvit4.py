@@ -68,7 +68,7 @@ def test_create_model_is_seeded_and_full_size():
 
 def test_create_model_rejects_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("Segformer")
+        create_model("ELANet")
 
 
 def test_whole_model_matches_jax(port_model_and_input):
@@ -128,10 +128,11 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     import corrifnet_tpu_torch
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
-                "models.decoder", "models.jax_import", "models.mmformer",
-                "models.mmvit2", "models.mmvit4", "models.multisenseseg",
-                "models.registry", "models.resnet3d", "models.rfnet",
-                "models.robustseg", "models.unet", "nn", "nn.conv",
+                "models.decoder", "models.deeplabv3p", "models.jax_import",
+                "models.mmformer", "models.mmvit2", "models.mmvit4",
+                "models.multisenseseg", "models.registry", "models.resnet3d",
+                "models.rfnet", "models.robustseg", "models.segformer",
+                "models.unet", "nn", "nn.conv",
                 "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
                 "nn.resize", "nn.transformer", "ops", "ops.attention", "ops.build",
                 "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
