@@ -16,12 +16,16 @@ gradients compare tensor by tensor under ``named_parameters()``.
 same for MMVit2 and mmformer, inverting
 ``corrifnet_tpu.models.torch_import.mmvit2_variables_from_state_dict``;
 ``rfnet_*``, ``robustseg_*``, ``multisenseseg_*``, ``unetv2_*``,
-``segformer_*`` and ``deeplab_*`` invert ``rfnet_variables_from_state_dict``,
+``segformer_*``, ``deeplab_*``, ``elanet_*``, ``fassdnet_*`` and ``enet_*``
+invert ``rfnet_variables_from_state_dict``,
 ``robustseg_variables_from_state_dict``,
 ``multisenseseg_variables_from_state_dict``,
 ``unetv2_variables_from_state_dict``,
-``segformer_variables_from_state_dict`` and
-``deeplab_variables_from_state_dict``.
+``segformer_variables_from_state_dict``,
+``deeplab_variables_from_state_dict``,
+``elanet_variables_from_state_dict``,
+``fassdnet_variables_from_state_dict`` and
+``enet_variables_from_state_dict``.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW), and 2-D ones
@@ -30,6 +34,9 @@ Layouts (JAX -> PyTorch):
   * Linear kernels (I, O) -> (O, I);
   * BatchNorm {scale, bias} + {mean, var} -> weight, bias, running_mean,
     running_var;
+  * transposed-conv kernels (KH, KW, O, I) -> (I, O, KH, KW), the same
+    transpose as a 2-D conv's; PReLU {alpha} -> weight; ELANet's CCA
+    Conv1d taps (k, 1, 1) -> (1, 1, k);
   * the three modality encoders and token streams are stacked on a leading
     modality axis (RGB, NIR, SWIR); tail bottlenecks on a scan axis after it.
 """
@@ -42,11 +49,19 @@ import numpy as np
 import torch
 
 from corrifnet_tpu_torch.models.deeplabv3p import XCEPTION_BLOCKS, rep_layout
+from corrifnet_tpu_torch.models.enet import STAGE23 as ENET_STAGE23
+from corrifnet_tpu_torch.models.fassdnet import N_LAYERS as FASSD_LAYERS
 from corrifnet_tpu_torch.models.segformer import STAGE_KSP
 
 __all__ = [
     "deeplab_named_gradients",
     "deeplab_state_dict_from_variables",
+    "elanet_named_gradients",
+    "elanet_state_dict_from_variables",
+    "enet_named_gradients",
+    "enet_state_dict_from_variables",
+    "fassdnet_named_gradients",
+    "fassdnet_state_dict_from_variables",
     "flatten_variables",
     "mmvit2_named_gradients",
     "mmvit2_state_dict_from_variables",
@@ -620,6 +635,242 @@ def deeplab_named_gradients(grads) -> Dict[str, torch.Tensor]:
     """A JAX gradient tree of DeepLabV3Plus's ``params`` -> {port parameter
     name: gradient}, as ``mmvit4_named_gradients``."""
     return deeplab_state_dict_from_variables({"params": grads})
+
+
+def _prelu(sd, key, params):
+    sd[f"{key}.weight"] = _t(params["alpha"])
+
+
+def _ela_bnp(sd, key, params, stats):
+    """ELANet's BNPReLU {bn, act}."""
+    _bn(sd, f"{key}.bn", params["bn"], _child(stats, "bn"))
+    _prelu(sd, f"{key}.act", params["act"])
+
+
+def _ela_cbp(sd, key, params, stats):
+    """ELANet's ConvBNPReLU {conv, bn, act}."""
+    _put(sd, f"{key}.conv", params["conv"], _conv_weight)
+    _ela_bnp(sd, key, params, stats)
+
+
+def _ela_cca(sd, key, params):
+    for leaf, idx in (("w1", 0), ("w2", 2)):
+        sd[f"{key}.conv.{idx}.weight"] = _t(np.transpose(np.asarray(params[leaf]), (2, 1, 0)))
+
+
+def _ela_ecg(sd, key, params, stats):
+    """ECG_D or ECG_R: its ConvBNPReLUs, channelwise convs, BNPReLUs (ECG_D's
+    own bn and act), ``reduce`` and CCA, each under its own name."""
+    for name, p in params.items():
+        s = None if stats is None else stats.get(name)
+        if name == "CA":
+            _ela_cca(sd, f"{key}.CA", p)
+        elif name == "act":
+            _prelu(sd, f"{key}.act", p)
+        elif name == "bn":
+            _bn(sd, f"{key}.bn", p, s)
+        elif "conv" in p and "bn" in p:
+            _ela_cbp(sd, f"{key}.{name}", p, s)
+        elif "bn" in p:
+            _ela_bnp(sd, f"{key}.{name}", p, s)
+        else:  # F_loc/F_sur, reduce: the wrapped conv
+            _put(sd, f"{key}.{name}.conv", p, _conv_weight)
+
+
+def _ela_wdconv(sd, key, params, stats):
+    _put(sd, f"{key}.conv", params["conv"], _conv_weight)
+    _ela_bnp(sd, f"{key}.bnpre", params["bnpre"], _child(stats, "bnpre"))
+
+
+def elanet_state_dict_from_variables(variables, M: int = 2, N: int = 5
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX ELANet ``variables`` -> port state_dict under the reference's
+    names: ``level2_r{i}``/``level3_r{i}`` as ``level2.{i}``/``level3.{i}``,
+    the decoder's ``Xd1_wd``/``_pw``/``_bnp`` as ``Xd1.{0,1,2}`` (and so
+    ``Xd2_1``), ``Xb_1`` as ``Xb_1.0``, SCA's ``c1``/``dw``/``bnp``/``out``
+    as ``SA.conv.{0,1,2,3}``, the classifier as ``classifier.0.conv``."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        _ela_cbp(sd, f"level1_{i}", params[f"level1_{i}"], _child(stats, f"level1_{i}"))
+    blocks = {"level2_0": "level2_0", **{f"level2_r{i}": f"level2.{i}" for i in range(M)},
+              "level3_0": "level3_0",
+              **{f"level3_r{i}": f"level3.{i}" for i in range(2 * N - 1)}}
+    for name, key in blocks.items():
+        _ela_ecg(sd, key, params[name], _child(stats, name))
+    for name in ("b1", "bn_prelu_2", "bn_prelu_3"):
+        _ela_bnp(sd, name, params[name], _child(stats, name))
+    dp, ds = params["decode"], _child(stats, "decode")
+    for name, key in (("Xd1", "decode.Xd1.0"), ("Xd2", "decode.Xd2"),
+                      ("Xd2_1", "decode.Xd2_1.0")):
+        _ela_wdconv(sd, key, dp[f"{name}_wd"], _child(ds, f"{name}_wd"))
+    for name in ("Xd1", "Xd2_1"):
+        _put(sd, f"decode.{name}.1", dp[f"{name}_pw"], _conv_weight)
+        _ela_bnp(sd, f"decode.{name}.2", dp[f"{name}_bnp"], _child(ds, f"{name}_bnp"))
+    _put(sd, "decode.Xb_1.0", dp["Xb_1"], _conv_weight)
+    _ela_cca(sd, "decode.CA", dp["CA"])
+    sap, sas = dp["SA"], _child(ds, "SA")
+    _ela_cbp(sd, "decode.SA.conv.0", sap["c1"], _child(sas, "c1"))
+    _put(sd, "decode.SA.conv.1.conv", sap["dw"], _conv_weight)
+    _ela_bnp(sd, "decode.SA.conv.2", sap["bnp"], _child(sas, "bnp"))
+    _put(sd, "decode.SA.conv.3", sap["out"], _conv_weight)
+    _ela_bnp(sd, "decode.bnpre", dp["bnpre"], _child(ds, "bnpre"))
+    _put(sd, "classifier.0.conv", params["classifier"], _conv_weight)
+    return sd
+
+
+def elanet_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ELANet's ``params`` -> {port parameter name:
+    gradient}, as ``mmvit4_named_gradients``."""
+    return elanet_state_dict_from_variables({"params": grads})
+
+
+def _fassd_convlayer(sd, key, params, stats):
+    _put(sd, f"{key}.conv", params["conv"], _conv_weight)
+    _bn(sd, f"{key}.norm", params["norm"], _child(stats, "norm"))
+
+
+def _fassd_hardblock(sd, key, params, stats, n_layers):
+    for i in range(n_layers):
+        _fassd_convlayer(sd, f"{key}.layers.{i}", params[f"layer{i}"],
+                         _child(stats, f"layer{i}"))
+
+
+def _fassd_bnprelu(sd, key, params, stats):
+    """FASSDNet's BNPReLU {bn, act}, its PReLU named ``acti``."""
+    _bn(sd, f"{key}.bn", params["bn"], _child(stats, "bn"))
+    _prelu(sd, f"{key}.acti", params["act"])
+
+
+_MDA_CONVS = (("conv3x3", "conv3x3"), ("par_conv3x3", "parallel_conv3x3"),
+              ("par_ddconv3x1", "parallel_ddconv3x1"), ("par_ddconv1x3", "parallel_ddconv1x3"))
+
+
+def fassdnet_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX FASSDNet ``variables`` -> port state_dict under the reference's
+    names: ``stem{i}`` as ``base.{i}``, ``hard{i}``/``trans{i}`` as
+    ``base.{4 + 3i}``/``base.{5 + 3i}``, the decoder's ``up_conv{i}``,
+    ``mda{i}`` and ``hard_up{i}`` as ``conv1x1_up.{i}``, ``mda.{i}`` and
+    ``denseBlocksUp.{i}``, MDA's ``par_*`` convs as ``parallel_*``."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+
+    def sub(name):
+        return params[name], _child(stats, name)
+
+    for i in range(4):
+        _fassd_convlayer(sd, f"base.{i}", *sub(f"stem{i}"))
+    for i, n in enumerate(FASSD_LAYERS):
+        _fassd_hardblock(sd, f"base.{4 + 3 * i}", *sub(f"hard{i}"), n)
+        _fassd_convlayer(sd, f"base.{5 + 3 * i}", *sub(f"trans{i}"))
+    p, s = sub("DAPF")
+    _put(sd, "DAPF.conv1x1", p["conv1x1"], _conv_weight)
+    _bn(sd, "DAPF.bn1x1", p["bn1x1"], _child(s, "bn1x1"))
+    for i in (2, 3, 4):
+        bp, bs, key = p[f"pyBranch{i}"], _child(s, f"pyBranch{i}"), f"DAPF.pyBranch{i}"
+        for conv, norm in (("conv3x1", "bn3x1"), ("conv1x3", "bn1x3")):
+            _put(sd, f"{key}.atrous_{conv}", bp[conv], _conv_weight)
+            _bn(sd, f"{key}.{norm}", bp[norm], _child(bs, norm))
+    _put(sd, "DAPF.conv1", p["conv1"], _conv_weight)
+    _bn(sd, "DAPF.bn1", p["bn1"], _child(s, "bn1"))
+    for di in range(len(FASSD_LAYERS) - 1):
+        _fassd_convlayer(sd, f"conv1x1_up.{di}", *sub(f"up_conv{di}"))
+        mp, ms, key = *sub(f"mda{di}"), f"mda.{di}"
+        for name in ("bn_relu_1", "bn_relu_2"):
+            _fassd_bnprelu(sd, f"{key}.{name}", mp[name], _child(ms, name))
+        for mine, ref in _MDA_CONVS:
+            _put(sd, f"{key}.{ref}.conv", mp[f"{mine}_conv"], _conv_weight)
+            _fassd_bnprelu(sd, f"{key}.{ref}.bn_prelu", mp[f"{mine}_bnp"],
+                           _child(ms, f"{mine}_bnp"))
+        _put(sd, f"{key}.conv1x1.conv", mp["conv1x1"], _conv_weight)
+        _fassd_hardblock(sd, f"denseBlocksUp.{di}", *sub(f"hard_up{di}"),
+                         FASSD_LAYERS[len(FASSD_LAYERS) - 2 - di])
+    _put(sd, "finalConv", params["finalConv"], _conv_weight)
+    return sd
+
+
+def fassdnet_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of FASSDNet's ``params`` -> {port parameter name:
+    gradient}, as ``mmvit4_named_gradients``."""
+    return fassdnet_state_dict_from_variables({"params": grads})
+
+
+# the JAX module's names of the stage-2/3 bottlenecks, in ENET_STAGE23's order
+_ENET_JAX_STAGE23 = ("regular{s}_a", "dilated{s}_b", "asym{s}_c", "dilated{s}_d",
+                     "regular{s}_e", "dilated{s}_f", "asym{s}_g", "dilated{s}_h")
+
+
+def _enet_regulars():
+    """[(JAX name, reference name)] of ENet's regular bottlenecks."""
+    pairs = [(f"regular1_{i}", f"regular1_{i}") for i in range(1, 5)]
+    for stage, first in ((2, 1), (3, 0)):
+        pairs += [(mine.format(s=stage), ref.format(s=stage, i=first + j))
+                  for j, (mine, (ref, _)) in enumerate(zip(_ENET_JAX_STAGE23, ENET_STAGE23))]
+    return pairs + [(n, n) for n in ("regular4_1", "regular4_2", "regular5_1")]
+
+
+def _enet_seq(sd, key, params, stats, convs):
+    """Conv/BatchNorm pairs of a Sequential: [(conv, norm, conv's index)]."""
+    for conv, norm, idx in convs:
+        _put(sd, f"{key}.{idx}", params[conv], _conv_weight)
+        _bn(sd, f"{key}.{idx + 1}", params[norm], _child(stats, norm))
+
+
+def _enet_act(sd, key, params, places):
+    """The bottleneck's one PReLU slope (none for ReLU) under every key that
+    the reference's ``state_dict`` holds it."""
+    if "act" in params:
+        for place in places:
+            _prelu(sd, f"{key}.{place}", params["act"]["prelu"])
+
+
+def enet_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX ENet ``variables`` -> port state_dict under the reference's
+    names: ``init_*`` as ``initial_block``'s, ``down{s}_0``/``up{s}_0`` as
+    ``downsample{s}_0``/``upsample{s}_0``, the stage-2/3 bottlenecks ``a``
+    to ``h`` by the reference's numbering, each bottleneck's ``c{i}``/
+    ``bn{i}`` as ``ext_conv{i}.{0,1}`` (an asymmetric one's ``c2a``/``c2b``
+    at ``ext_conv2.0`` and ``.3``), ``main_c1``/``main_bn`` as
+    ``main_conv1.{0,1}``; an encoder bottleneck's PReLU slope under each of
+    its keys (``ext_conv{i}.2``, ``ext_conv2.5``, ``out_prelu``)."""
+    params, stats = variables["params"], variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+
+    def sub(name):
+        return params[name], _child(stats, name)
+
+    _put(sd, "initial_block.main_branch", params["init_conv"], _conv_weight)
+    _bn(sd, "initial_block.batch_norm", params["init_bn"], _child(stats, "init_bn"))
+    _enet_act(sd, "initial_block", {"act": params["init_act"]}, ("out_prelu",))
+    acts = ("ext_conv1.2", "ext_conv2.2", "ext_conv3.2", "out_prelu")
+    for stage in (1, 2):
+        (p, s), key = sub(f"down{stage}_0"), f"downsample{stage}_0"
+        for i in (1, 2, 3):
+            _enet_seq(sd, f"{key}.ext_conv{i}", p, s, [(f"c{i}", f"bn{i}", 0)])
+        _enet_act(sd, key, p, acts)
+    for mine, key in _enet_regulars():
+        p, s = sub(mine)
+        _enet_seq(sd, f"{key}.ext_conv1", p, s, [("c1", "bn1", 0)])
+        asym = mine.startswith("asym")
+        _enet_seq(sd, f"{key}.ext_conv2", p, s,
+                  [("c2a", "bn2a", 0), ("c2b", "bn2b", 3)] if asym else [("c2", "bn2", 0)])
+        _enet_seq(sd, f"{key}.ext_conv3", p, s, [("c3", "bn3", 0)])
+        _enet_act(sd, key, p, acts + (("ext_conv2.5",) if asym else ()))
+    for stage in (4, 5):
+        (p, s), key = sub(f"up{stage}_0"), f"upsample{stage}_0"
+        _enet_seq(sd, f"{key}.main_conv1", p, s, [("main_c1", "main_bn", 0)])
+        for i in (1, 2, 3):
+            _enet_seq(sd, f"{key}.ext_conv{i}", p, s, [(f"c{i}", f"bn{i}", 0)])
+        _enet_act(sd, key, p, acts)
+    _put(sd, "transposed_conv", params["transposed_conv"], _conv_weight)
+    return sd
+
+
+def enet_named_gradients(grads) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of ENet's ``params`` -> {port parameter name:
+    gradient}, as ``mmvit4_named_gradients``; a bottleneck's one PReLU
+    gradient under each of its names."""
+    return enet_state_dict_from_variables({"params": grads})
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

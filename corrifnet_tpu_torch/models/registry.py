@@ -3,9 +3,10 @@
 Counterpart of ``corrifnet_tpu/models/registry.py``: a table of specs (name,
 factory, input kind, the model options it takes). MMVit4 (CorrIFNet), MMVit2,
 mmformer, RFNet, RobustMseg and MultiSenseSeg (5-D input) and UNetV2,
-Segformer and DeepLabv3_plus (4-D input: one modality, chosen by the
-config's ``chindex``) are ported; every other model of the JAX package's zoo
-is still to be ported (see ROADMAP.md).
+Segformer, DeepLabv3_plus, ELANet, FASSDNet and ENet (4-D input: one
+modality, chosen by the config's ``chindex``) are ported: every model the
+JAX package's zoo can build. The names it lists as unavailable (their
+modules are absent from the reference's snapshot) have no port either.
 A factory takes the compute ``dtype``, ``transformer_dropout`` and the
 options its spec names as keywords and returns a module with
 ``compute_dtype``, ``reset_parameters(generator)`` and
@@ -24,6 +25,9 @@ import torch
 from torch import nn
 
 from corrifnet_tpu_torch.models.deeplabv3p import DeepLabV3Plus
+from corrifnet_tpu_torch.models.elanet import ELANet
+from corrifnet_tpu_torch.models.enet import ENet
+from corrifnet_tpu_torch.models.fassdnet import FASSDNet
 from corrifnet_tpu_torch.models.mmvit2 import MMFormer, MMVit2
 from corrifnet_tpu_torch.models.mmvit4 import MMVit4
 from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
@@ -57,13 +61,16 @@ _REGISTRY: Dict[str, ModelSpec] = {
     "UNetV2": ModelSpec("UNetV2", UNetV2, "4d", options=()),
     "Segformer": ModelSpec("Segformer", Segformer, "4d", options=()),
     "DeepLabv3_plus": ModelSpec("DeepLabv3_plus", DeepLabV3Plus, "4d", options=()),
+    "ELANet": ModelSpec("ELANet", ELANet, "4d", options=()),
+    "FASSDNet": ModelSpec("FASSDNet", FASSDNet, "4d", options=()),
+    "ENet": ModelSpec("ENet", ENet, "4d", options=()),
 }
 
 
 def get_spec(name: str) -> ModelSpec:
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"modeltype {name!r} is not ported to PyTorch yet; see ROADMAP.md"
+            f"modeltype {name!r} has no PyTorch port; see ROADMAP.md"
         )
     return _REGISTRY[name]
 

@@ -2,15 +2,20 @@
 
 from corrifnet_tpu_torch.nn.conv import (
     Conv,
+    ConvTranspose,
     Dense,
     EarlyFusionBlock,
     FusionPrenorm,
     GeneralConv3d,
+    PReLU,
 )
 from corrifnet_tpu_torch.nn.norm import BatchNorm, InstanceNorm, LayerNorm
 from corrifnet_tpu_torch.nn.resize import (
     adaptive_max_pool,
+    avg_pool,
     max_pool,
+    max_pool_argmax,
+    max_unpool,
     resize_linear,
     resize_nearest,
 )
@@ -19,6 +24,7 @@ from corrifnet_tpu_torch.nn.transformer import DropoutRng, Transformer
 __all__ = [
     "BatchNorm",
     "Conv",
+    "ConvTranspose",
     "Dense",
     "DropoutRng",
     "EarlyFusionBlock",
@@ -26,9 +32,13 @@ __all__ = [
     "GeneralConv3d",
     "InstanceNorm",
     "LayerNorm",
+    "PReLU",
     "Transformer",
     "adaptive_max_pool",
+    "avg_pool",
     "max_pool",
+    "max_pool_argmax",
+    "max_unpool",
     "resize_linear",
     "resize_nearest",
 ]

@@ -1,7 +1,8 @@
-"""Convolution building blocks of MMVit4, NCDHW.
+"""Convolution building blocks of MMVit4, NCDHW, and of the 2-D zoo, NCHW.
 
-Counterpart of ``corrifnet_tpu/nn/conv.py``: ``Conv``, ``Dense``,
-``GeneralConv3d``, ``FusionPrenorm`` and ``EarlyFusionBlock``. Parameters
+Counterpart of ``corrifnet_tpu/nn/conv.py``: ``Conv``, ``ConvTranspose``,
+``PReLU``, ``Dense``, ``GeneralConv3d``, ``FusionPrenorm`` and
+``EarlyFusionBlock``. Parameters
 are f32 in PyTorch layout and cast to the input's dtype per call (bf16
 compute over f32 parameters). Module and parameter names are the
 reference's, so a ``state_dict`` converts to JAX variables with
@@ -26,7 +27,8 @@ from corrifnet_tpu_torch.nn.norm import InstanceNorm
 from corrifnet_tpu_torch.nn.pad import replicate_pad
 from corrifnet_tpu_torch.ops import relu_instancenorm
 
-__all__ = ["Conv", "Dense", "GeneralConv3d", "FusionPrenorm", "EarlyFusionBlock"]
+__all__ = ["Conv", "ConvTranspose", "Dense", "EarlyFusionBlock", "FusionPrenorm",
+           "GeneralConv3d", "PReLU"]
 
 
 def _tuple(v, n):
@@ -139,6 +141,61 @@ class Conv(nn.Module):
         same math as ``forward`` on the token grid, as one matmul."""
         w = self.weight.flatten(1).to(tokens.dtype)
         return F.linear(tokens, w, self._bias(tokens.dtype))
+
+
+class ConvTranspose(nn.Module):
+    """PyTorch's ConvTranspose2d (kernel, stride, padding, ``output_padding``;
+    ENet's up-sampling convs), the counterpart of the JAX ``ConvTranspose``
+    (``corrifnet_tpu/nn/conv.py:635``). The weight is PyTorch's ``(in, out,
+    k, k)``, whose fans (``out * k * k`` in, ``in * k * k`` out) are those of
+    the JAX kernel ``(k, k, out, in)``: PyTorch's default initializer and the
+    ``notr`` schemes draw it as the JAX package does."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, bias=True):
+        super().__init__()
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, out_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def kernel(self):
+        """The weight, in the layout whose fans the re-initialization draws
+        with (see the class docstring)."""
+        return self.weight
+
+    def reset_parameters(self, generator):
+        torch_default_(self.weight, fan_in(self.weight), generator)
+        if self.bias is not None:
+            torch_default_(self.bias, fan_in(self.weight), generator)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride, self.padding,
+                                  self.output_padding)
+
+
+class PReLU(nn.Module):
+    """PyTorch's nn.PReLU: ``channels`` slopes, one per channel (dim 1), or
+    with ``channels=None`` one shared slope, each initialized to 0.25; the
+    reference's ``weight``. Computed as the JAX ``PReLU``
+    (``corrifnet_tpu/nn/conv.py:687``), ``max(x, 0) + w * min(x, 0)`` with
+    the slopes in x's dtype: at x = 0 the gradient is split evenly between
+    the two terms, as JAX's and PyTorch's ``maximum``/``minimum`` split it."""
+
+    def __init__(self, channels=None, init_value=0.25):
+        super().__init__()
+        self.init_value = init_value
+        self.weight = nn.Parameter(torch.full((channels or 1,), init_value))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(self.init_value)
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype).view(1, -1, *(1,) * (x.dim() - 2))
+        zero = x.new_zeros(())
+        return torch.maximum(x, zero) + w * torch.minimum(x, zero)
 
 
 class Dense(nn.Module):

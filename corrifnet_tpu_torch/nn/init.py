@@ -15,7 +15,10 @@ axis (a model names those in ``JAX_STACKED``), though the reference
 re-initializes every Conv2d. Each kernel is drawn in the layout its
 ``Conv.kernel()`` gives, whose fans are the JAX kernel's: Segformer's
 patch embeds, kept as the reference's ``(O, I*k*k, 1, 1)`` 1x1 weights,
-draw as the ``(O, I, k, k)`` convs that the JAX package holds.
+draw as the ``(O, I, k, k)`` convs that the JAX package holds. ENet's
+transposed convs (``ConvTranspose``, 4-axis kernels in the JAX tree) are
+re-initialized too, as the JAX package's are, though the reference's
+Conv2d-only dispatch leaves them as built (ROADMAP.md, "Not faults").
 """
 
 from __future__ import annotations
@@ -94,12 +97,13 @@ REFERENCE_INIT_SCHEMES = {
 
 @torch.no_grad()
 def apply_reference_init_scheme(model, scheme: str, generator: torch.Generator):
-    """Re-initialize ``model``'s 2-D conv kernels with ``scheme`` from
-    ``generator`` (drawn on the CPU, in module order) and zero their biases,
-    skipping the modules under the model's ``JAX_STACKED`` prefixes. An
-    unknown scheme is a no-op, as the reference's dispatch is. Returns the
-    names of the kernels re-initialized."""
-    from corrifnet_tpu_torch.nn.conv import Conv
+    """Re-initialize ``model``'s 2-D conv and transposed-conv kernels with
+    ``scheme`` from ``generator`` (drawn on the CPU, in module order) and
+    zero their biases, skipping the modules under the model's
+    ``JAX_STACKED`` prefixes. An unknown scheme is a no-op, as the
+    reference's dispatch is. Returns the names of the kernels
+    re-initialized."""
+    from corrifnet_tpu_torch.nn.conv import Conv, ConvTranspose
 
     init = REFERENCE_INIT_SCHEMES.get(scheme)
     if init is None:
@@ -107,7 +111,7 @@ def apply_reference_init_scheme(model, scheme: str, generator: torch.Generator):
     stacked = tuple(getattr(model, "JAX_STACKED", ()))
     names = []
     for name, module in model.named_modules():
-        if (isinstance(module, Conv) and module.weight.dim() == 4
+        if (isinstance(module, (Conv, ConvTranspose)) and module.weight.dim() == 4
                 and not (name + ".").startswith(stacked)):
             init(module.kernel(), generator)
             if module.bias is not None:

@@ -87,7 +87,10 @@ class BatchNorm(nn.Module):
         mean = s / n
         return self.fold(mean, torch.clamp(q / n - mean * mean, min=0.0), n)
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
+        """``dtype`` (x's by default) is the JAX module's: the statistics
+        are taken of x, then x is cast to it and normalized in it (ELANet's
+        f32 residual stream enters its BatchNorms so under bf16)."""
         mean = var = n = None
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
@@ -97,7 +100,7 @@ class BatchNorm(nn.Module):
             n = x.numel() // x.shape[1]
         a, b = self.fold(mean, var, n)
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return _apply(x, a.view(shape), b.view(shape))
+        return _apply(x if dtype is None else x.to(dtype), a.view(shape), b.view(shape))
 
 
 class InstanceNorm(nn.Module):

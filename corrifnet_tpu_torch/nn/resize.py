@@ -31,7 +31,21 @@ that training repeats its bits on the card (``utils/determinism.py``):
   * ``adaptive_max_pool`` is the JAX package's: one ``amax`` per output
     cell over its slice, whose gradient is spread evenly over tied entries
     as ``jnp.max``'s is (PyTorch's ``adaptive_max_pool2d`` backward has no
-    deterministic CUDA implementation).
+    deterministic CUDA implementation);
+  * ``max_pool_argmax`` (ENet's down-sampling bottlenecks) is the JAX
+    package's too: the k*k strided tap slices of the input padded with
+    f32's lowest value, ``amax`` over them for the values (its gradient
+    spread evenly over tied entries, as ``jnp.max``'s is, where ``max_pool``
+    gives a tie to one entry, as the JAX ``max_pool`` does) and ``argmax``
+    for the flat indices (the first largest entry, in window order).
+    ``F.max_pool2d(return_indices=True)`` would give a tie to one entry and
+    scatter its gradient with atomics;
+  * ``max_unpool`` places each value at its index, the last writer in
+    row-major pooled order winning where indices repeat (the JAX package's
+    scatter on the CPU), through a reduction of each target to its largest
+    writer rank and a gather; its backward gives every writer the gradient
+    at its index, as the reference's ``MaxUnpool2d`` and the JAX custom VJP
+    do. ``F.max_unpool2d`` has no deterministic CUDA implementation.
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["adaptive_max_pool", "resize_linear", "resize_nearest", "max_pool"]
+__all__ = ["adaptive_max_pool", "avg_pool", "max_pool", "max_pool_argmax", "max_unpool",
+           "resize_linear", "resize_nearest"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,3 +250,61 @@ def adaptive_max_pool(x, out_hw):
                 for j in range(ow)]
         rows.append(torch.stack(cols, dim=-1))
     return torch.stack(rows, dim=-2)  # (B, C, oh, ow)
+
+
+def avg_pool(x, window, strides=None, padding=None, count_include_pad=True):
+    """2-D average pooling of NCHW input (``corrifnet_tpu/nn/resize.py:156``):
+    summed in f32 and returned in x's dtype; the divisor counts padded zeros
+    unless ``count_include_pad`` is False, as PyTorch's default does."""
+    y = F.avg_pool2d(x.float(), tuple(window), tuple(strides or window),
+                     tuple(padding or (0,) * len(window)),
+                     count_include_pad=count_include_pad)
+    return y.to(x.dtype)
+
+
+def max_pool_argmax(x, k: int, stride: int, padding: int):
+    """(values, flat indices) of a k x k max pool of NCHW input, PyTorch's
+    ``MaxPool2d(return_indices=True)`` semantics (``corrifnet_tpu/nn/
+    resize.py:246``): each index is the row-major position in the unpadded
+    H*W plane of its (sample, channel). Ties: see the module docstring."""
+    h, w = x.shape[2:]
+    xp = F.pad(x.float(), (padding,) * 4, value=torch.finfo(torch.float32).min)
+    ho = (h + 2 * padding - k) // stride + 1
+    wo = (w + 2 * padding - k) // stride + 1
+    taps = torch.stack([xp[:, :, i:i + stride * (ho - 1) + 1:stride,
+                           j:j + stride * (wo - 1) + 1:stride]
+                        for i in range(k) for j in range(k)])
+    arg = taps.argmax(dim=0)
+    rows = torch.arange(ho, device=x.device).view(-1, 1) * stride - padding + arg // k
+    cols = torch.arange(wo, device=x.device) * stride - padding + arg % k
+    return taps.amax(dim=0).to(x.dtype), rows * w + cols
+
+
+class _MaxUnpool(torch.autograd.Function):
+    """The forward and backward of ``max_unpool`` (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, indices, out_hw):
+        b, c, h, w = x.shape
+        idx = indices.reshape(b * c, h * w)
+        rank = torch.arange(h * w, device=x.device).expand(b * c, -1).contiguous()
+        last = torch.full((b * c, out_hw[0] * out_hw[1]), -1, dtype=torch.long,
+                          device=x.device)
+        last.scatter_reduce_(1, idx, rank, reduce="amax")
+        placed = x.reshape(b * c, h * w).gather(1, last.clamp_min(0))
+        ctx.save_for_backward(indices)
+        return torch.where(last >= 0, placed, 0.0).to(x.dtype).view(b, c, *out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        b, c, h, w = indices.shape
+        gx = g.reshape(b * c, -1).gather(1, indices.reshape(b * c, h * w))
+        return gx.view(b, c, h, w), None, None
+
+
+def max_unpool(x, indices, out_hw):
+    """PyTorch's ``MaxUnpool2d`` of NCHW input: x's values at their flat
+    ``indices`` (from ``max_pool_argmax``) in a zero plane of ``out_hw``
+    (``corrifnet_tpu/nn/resize.py:283-323``)."""
+    return _MaxUnpool.apply(x, indices, tuple(out_hw))

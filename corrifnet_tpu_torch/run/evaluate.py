@@ -5,7 +5,7 @@ config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack or
 synthetic) -> batches of
 ``max(mini_batch_size, 8)`` -> forward -> per-image (jaccard2, f1) on
 modality channel 0 -> mean and std. A 4-D model (UNetV2, Segformer,
-DeepLabv3_plus) is given modality 0 and channel 0 of the masks *whatever the
+DeepLabv3_plus, ELANet, FASSDNet, ENet) is given modality 0 and channel 0 of the masks *whatever the
 config's* ``chindex`` (the JAX package's ``evaluate_run`` does so,
 ``corrifnet_tpu/run/evaluate.py:99-100``): a 4-D model trained on NIR is
 evaluated on RGB (ROADMAP.md, "Not faults").
@@ -13,10 +13,11 @@ evaluated on RGB (ROADMAP.md, "Not faults").
 Weights: ``--weights`` takes a ``.npz`` of the flattened JAX variable tree
 (``/``-joined keys, e.g. ``params/encoders/conv6/kernel``) of the config's
 ``modeltype`` (MMVit4, MMVit2, mmformer, RFNet, RobustMseg, MultiSenseSeg,
-UNetV2, Segformer or DeepLabv3_plus), converted by ``models.jax_import``, or a
-``.pt`` ``state_dict``: the port's, or the reference's (its BatchNorm step
-counters and dead up-sampling weights dropped, its static tables checked
-against the port's).
+UNetV2, Segformer, DeepLabv3_plus, ELANet, FASSDNet or ENet), converted by
+``models.jax_import``, or a ``.pt`` ``state_dict``: the port's, or the
+reference's (its BatchNorm step counters, UNetV2's dead up-sampling weights
+and ENet's dead ``project_layer`` dropped, its static tables checked against
+the port's).
 Without it the model is initialized from ``cfg.seed``.
 
     python -m corrifnet_tpu_torch.run.evaluate --config model0.txt \
@@ -40,6 +41,9 @@ from corrifnet_tpu_torch.metrics import jaccard_f1_pair
 from corrifnet_tpu_torch.models import (
     create_model,
     deeplab_state_dict_from_variables,
+    elanet_state_dict_from_variables,
+    enet_state_dict_from_variables,
+    fassdnet_state_dict_from_variables,
     mmvit2_state_dict_from_variables,
     mmvit4_state_dict_from_variables,
     multisenseseg_state_dict_from_variables,
@@ -75,6 +79,9 @@ _CONVERTERS = {
     "UNetV2": unetv2_state_dict_from_variables,
     "Segformer": segformer_state_dict_from_variables,
     "DeepLabv3_plus": deeplab_state_dict_from_variables,
+    "ELANet": elanet_state_dict_from_variables,
+    "FASSDNet": fassdnet_state_dict_from_variables,
+    "ENet": enet_state_dict_from_variables,
 }
 
 
@@ -82,8 +89,9 @@ def _npz_model(params):
     """Which of the ported models a JAX ``params`` tree is (None: none of
     them): MMVit4 has the fused6 group, RFNet the region map generators,
     RobustMseg the content encoders, MultiSenseSeg AMM, UNetV2 ``outc``,
-    Segformer its first patch embed, DeepLabv3_plus its Xception; of the
-    conv-encoder family, mmformer's unused qkv leaves are zero."""
+    Segformer its first patch embed, DeepLabv3_plus its Xception, ELANet
+    ``level1_0``, FASSDNet ``DAPF``, ENet ``init_conv``; of the conv-encoder
+    family, mmformer's unused qkv leaves are zero."""
     if "fused6_pos" in params:
         return "MMVit4"
     if "prm_generator4" in params:
@@ -98,6 +106,9 @@ def _npz_model(params):
         return "Segformer"
     if "xception" in params:
         return "DeepLabv3_plus"
+    for key, name in (("level1_0", "ELANet"), ("DAPF", "FASSDNet"), ("init_conv", "ENet")):
+        if key in params:
+            return name
     qkv = params.get("modality_stream", {}).get("qkv")
     if "multimodal_decode_conv" not in params or qkv is None:
         return None
@@ -120,6 +131,10 @@ def _state_dict_model(keys):
         return "Segformer"
     if "xception_features.conv1.weight" in keys:
         return "DeepLabv3_plus"
+    for key, name in (("level1_0.conv.weight", "ELANet"), ("DAPF.conv1x1.weight", "FASSDNet"),
+                      ("initial_block.main_branch.weight", "ENet")):
+        if key in keys:
+            return name
     if "RGB_encoder.e1_c1.weight" not in keys:
         return None
     return "MMVit2" if "qkv_RGB.weight" in keys else "mmformer"
@@ -147,9 +162,10 @@ def _static_tables(keys):
 
 def _from_reference(sd, path):
     """A reference ``state_dict`` as the port's: BatchNorm's
-    ``num_batches_tracked`` and UNetV2's dead ConvTranspose2d weights
-    (``up{i}.up.*``, unused with ``bilinear=True``) dropped, and the static
-    tables dropped once they equal the port's (``ValueError`` otherwise)."""
+    ``num_batches_tracked``, UNetV2's dead ConvTranspose2d weights
+    (``up{i}.up.*``, unused with ``bilinear=True``) and ENet's dead
+    ``project_layer.*`` (F29:414-415) dropped, and the static tables dropped
+    once they equal the port's (``ValueError`` otherwise)."""
     out = {}
     tables = _static_tables(sd)
     for key, value in sd.items():
@@ -160,7 +176,8 @@ def _from_reference(sd, path):
                                                         rtol=1e-6, atol=1e-6):
                 raise ValueError(f"{path}: {key} differs from the table the model builds")
             continue
-        if key.endswith("num_batches_tracked") or re.match(r"up\d\.up\.", key):
+        if (key.endswith("num_batches_tracked") or re.match(r"up\d\.up\.", key)
+                or key.startswith("project_layer.")):
             continue
         out[key] = value
     return out

@@ -51,12 +51,22 @@ def zero_gradients(model: nn.Module, batch: int = 1):
       * at batch 1, the decode gate's SE weights: the SE averages each
         channel of a training-mode BatchNorm's output over the image, which
         is then that norm's bias, 0 as initialized, and both weights'
-        gradients are products with it."""
+        gradients are products with it;
+
+    and in ELANet the decoder's two 1x1 convs with bias that feed a
+    BNPReLU (``decode.Xd1.1``, ``decode.Xd2_1.1``). FASSDNet's and ENet's
+    convs are bias-free but their last, and their BatchNorm biases all reach
+    a nonlinearity: they have none. (A gradient that is exactly 0, on both
+    sides, because a ReLU is dead for the data, as an ELANet CCA's can be,
+    is not listed: it depends on the weights.)"""
     from corrifnet_tpu_torch.models.deeplabv3p import ASPP_RATES, DeepLabV3Plus
+    from corrifnet_tpu_torch.models.elanet import ELANet
     from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
     from corrifnet_tpu_torch.nn.conv import Conv
 
     names = []
+    if isinstance(model, ELANet):
+        names += [f"decode.{seq}.1.bias" for seq in ("Xd1", "Xd2_1")]
     if isinstance(model, MultiSenseSeg):
         names += [f"build_pipeline.norm{i}.bias"
                   for i in range(len(model.build_pipeline.depths) - 1)]

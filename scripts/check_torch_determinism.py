@@ -8,7 +8,7 @@ For each model (``+fused``: built with ``pallas_fused_blocks``), at
 224x224, bf16 compute, transformer dropout 0.1 (each zoo model at its own
 fixed rates), Adam, random weights from seed 0 and a random batch on the
 card (one modality and one mask channel for a 4-D model: UNetV2, Segformer,
-DeepLabv3_plus):
+DeepLabv3_plus, ELANet, FASSDNet, ENet):
 
 1. probe: one training step under ``utils.determinism.deterministic(
    warn_only=True)``; every op that has no deterministic implementation
@@ -43,7 +43,7 @@ from corrifnet_tpu_torch.train import init_state, make_train_step  # noqa: E402
 from corrifnet_tpu_torch.utils.determinism import deterministic  # noqa: E402
 
 DEFAULT_MODELS = ("MMVit4,MMVit4+fused,MMVit2,mmformer,RFNet,RobustMseg,MultiSenseSeg,"
-                  "UNetV2,Segformer,DeepLabv3_plus")
+                  "UNetV2,Segformer,DeepLabv3_plus,ELANet,FASSDNet,ENet")
 
 
 def build(name):

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time and profile the port's training step (MMVit4, MMVit2, mmformer,
-RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer or DeepLabv3_plus, the
-last three on one modality) on one NVIDIA GPU, under the entry points'
-``deterministic()`` scope.
+RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer, DeepLabv3_plus, ELANet,
+FASSDNet or ENet, the last six on one modality) on one NVIDIA GPU, under
+the entry points' ``deterministic()`` scope.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--iters 10]
         [--model MMVit4|MMVit2|mmformer|RFNet|RobustMseg|MultiSenseSeg|UNetV2|
-                 Segformer|DeepLabv3_plus]
+                 Segformer|DeepLabv3_plus|ELANet|FASSDNet|ENet]
         [--fused] [--lean none|true|false]
         [--out DIR]
 
@@ -63,10 +63,11 @@ def main(argv=None):
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--model", choices=("MMVit4", "MMVit2", "mmformer", "RFNet", "RobustMseg",
                                         "MultiSenseSeg", "UNetV2", "Segformer",
-                                        "DeepLabv3_plus"),
+                                        "DeepLabv3_plus", "ELANet", "FASSDNet", "ENet"),
                     default="MMVit4",
                     help="the modeltype to profile (MMVit4, MMVit2, mmformer, RFNet, "
-                    "RobustMseg, MultiSenseSeg, UNetV2, Segformer or DeepLabv3_plus)")
+                    "RobustMseg, MultiSenseSeg, UNetV2, Segformer, DeepLabv3_plus, "
+                    "ELANet, FASSDNet or ENet)")
     ap.add_argument("--fused", action="store_true",
                     help="build the model with pallas_fused_blocks")
     ap.add_argument("--lean", choices=sorted(LEAN), default="none",

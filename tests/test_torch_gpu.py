@@ -898,10 +898,11 @@ def _image_shape(name, b, hw):
 
 
 @pytest.mark.parametrize("name", ["RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2",
-                                  "Segformer", "DeepLabv3_plus"])
+                                  "Segformer", "DeepLabv3_plus", "ELANet", "FASSDNet",
+                                  "ENet"])
 def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
-    """RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer and
-    DeepLabv3_plus (the last three 4-D input) at B=1 on a 64x64 input in
+    """RFNet, RobustMseg, MultiSenseSeg, UNetV2, Segformer, DeepLabv3_plus,
+    ELANet, FASSDNet and ENet (the last six 4-D input) at B=1 on a 64x64 input in
     f32 (RFNet's cascade runs at its fixed 16^3-128^3 volumes whatever the
     input, Segformer's output at its default 224x224), the card against the
     CPU, same weights: within 1e-4 or twice the CPU's own change under a
@@ -933,7 +934,7 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("name", ["MMVit4", "RFNet", "MultiSenseSeg", "UNetV2", "Segformer",
-                                  "DeepLabv3_plus"])
+                                  "DeepLabv3_plus", "ELANet", "FASSDNet", "ENet"])
 def test_two_training_steps_repeat_their_bits(cuda, name):
     """Two B=4 bf16 training steps at 224x224 (the model's dropout on, Adam)
     from the same state, twice, under the entry points' ``deterministic()``
@@ -990,3 +991,33 @@ def test_max_pool_2d_backward_on_the_card_equals_the_cpu(cuda, window, model):
             (gx,) = torch.autograd.grad(y, xd, g.to(dev))
             outs.append((y.detach().cpu(), gx.cpu()))
         assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+
+
+def test_max_pool_argmax_and_unpool_on_the_card_equal_the_cpu(cuda):
+    """ENet's pool and unpool at its first down-sampling bottleneck's shape
+    (B=4, 16 channels, 112x112, k=3, stride 2, padding 1), on PReLU-like
+    data with many tied windows (a quarter of the entries 0): the values,
+    indices, unpooled plane (where indices repeat, the last writer in
+    row-major pooled order) and both gradients on the card equal the CPU's
+    bit for bit under ``deterministic()``, and repeat their bits."""
+    from corrifnet_tpu_torch.nn import max_pool_argmax, max_unpool
+    from corrifnet_tpu_torch.utils.determinism import deterministic
+
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn((4, 16, 112, 112), generator=gen)
+    x = torch.where(x < -0.7, torch.zeros_like(x), x)
+    g_pool = torch.randn((4, 16, 56, 56), generator=gen)
+    g_unpool = torch.randn((4, 16, 112, 112), generator=gen)
+    outs = []
+    with deterministic():
+        for dev in ("cpu", "cuda", "cuda"):
+            xd = x.to(dev).requires_grad_()
+            vals, idx = max_pool_argmax(xd, 3, 2, 1)
+            (gx,) = torch.autograd.grad(vals, xd, g_pool.to(dev))
+            v = vals.detach().requires_grad_()
+            up = max_unpool(v, idx, (112, 112))
+            (gv,) = torch.autograd.grad(up, v, g_unpool.to(dev))
+            outs.append([t.detach().cpu() for t in (vals, idx, gx, up, gv)])
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+    idx = outs[0][1].flatten(2)
+    assert any(len(set(row.tolist())) < row.numel() for row in idx[0])

@@ -67,8 +67,10 @@ def test_create_model_is_seeded_and_full_size():
 
 
 def test_create_model_rejects_unported_models():
+    # every model the JAX package can build is ported; MMVit1's module is
+    # absent from the reference's snapshot, so neither package builds it
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("ELANet")
+        create_model("MMVit1")
 
 
 def test_whole_model_matches_jax(port_model_and_input):
@@ -128,7 +130,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     import corrifnet_tpu_torch
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
-                "models.decoder", "models.deeplabv3p", "models.jax_import",
+                "models.decoder", "models.deeplabv3p", "models.elanet", "models.enet",
+                "models.fassdnet", "models.jax_import",
                 "models.mmformer", "models.mmvit2", "models.mmvit4",
                 "models.multisenseseg", "models.registry", "models.resnet3d",
                 "models.rfnet", "models.robustseg", "models.segformer",
