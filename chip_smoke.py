@@ -149,8 +149,22 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    and FASSDNet's (c) run on BatchNorm statistics calibrated to O(1)
    activations, as MMVit4's phase 6 does: with identity statistics the
    first two saturate their sigmoid and FASSDNet's output is flat.
-   Each part's seconds are logged, as are every phase's and the whole
-   run's.
+   Each part's seconds are logged;
+14. trained weights brought into the port and re-evaluated
+   (``phase_mat_import``), MMVit4 at B=8 in bf16: 24 synthetic patches
+   written as ``.mat`` files in the reference's layout (RGB, the
+   20-channel cube, the mask), a seeded MMVit4 written as a reference
+   ``.pt`` (``num_batches_tracked`` added back) and imported by
+   ``run.import_checkpoint.main`` into two run directories, then
+   ``run.evaluate.main --run-dir --segplot-dir`` over the ``.mat``
+   directories with the counters reset just before and read just after
+   (per B=8 forward K1f 1, K2f 4, K3 27; the B=1 segplot forwards, lean by
+   the batch rule, K1f 1, K2f 4, K3 15 each, printed apart): its metrics
+   equal bit for bit those of ``run.evaluate.main --weights`` of the same
+   ``.pt`` over the port's ``pack_mat_directory`` of the same directories,
+   each test image has its two PNGs, and a ``--manifest`` of the two run
+   directories gives two equal results.
+Every phase's seconds are logged, and the whole run's.
 
 Every training run of phases 5, 8, 11, 12 and 13 runs under the entry
 point's ``deterministic()`` scope (PyTorch's deterministic algorithms,
@@ -176,6 +190,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2028,6 +2043,144 @@ def phase_zoo(ops, tmp):
     return numbers
 
 
+MAT_SET = 24  # phase 14's patches; fold 2 of 2: 12 test images, 2 batches of 8
+MAT_METRICS = ("jaccard_mean", "jaccard_std", "f1_mean", "f1_std", "n_images")
+
+
+def write_mat_dirs(root, n, seed=14):
+    """``n`` synthetic patches as ``.mat`` files in the reference's layout
+    (F8_IMAGES4.py:20-32): ``RGBs`` (224x224x3 float64), ``all20Ch``
+    (224x224x20 float32) and ``class06_mats`` (224x224 uint8 masks of one
+    to three rectangles), the bands shifted where the mask is set. Returns
+    the config's ``data_dirs``."""
+    import scipy.io as sio
+
+    rng = np.random.default_rng(seed)
+    dirs = {"rgb": root / "RGBs", "all20": root / "all20Ch", "mask": root / "class06_mats"}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    for i in range(n):
+        mask = np.zeros((224, 224), np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            y0, x0 = rng.integers(0, 160, 2)
+            h, w = rng.integers(16, 64, 2)
+            mask[y0:y0 + h, x0:x0 + w] = 1
+        rgb = rng.normal(100, 20, (224, 224, 3)) + 30.0 * mask[..., None]
+        cube = (rng.normal(50, 10, (224, 224, 20)) + 15.0 * mask[..., None]).astype(np.float32)
+        name = f"patch{i:04d}.mat"
+        sio.savemat(dirs["rgb"] / name, {"inputPatch": rgb})
+        sio.savemat(dirs["all20"] / name, {"inputPatch": cube})
+        sio.savemat(dirs["mask"] / name, {"inputPatch": mask})
+    return {k: str(v) for k, v in dirs.items()}
+
+
+def reference_checkpoint(path, seed=14):
+    """A seeded port MMVit4's ``state_dict`` written as the reference saves
+    it: ``num_batches_tracked`` beside every BatchNorm."""
+    from corrifnet_tpu_torch.models import create_model
+
+    sd = dict(create_model("MMVit4", seed=seed).state_dict())
+    for key in [k for k in sd if k.endswith(".running_var")]:
+        sd[key.replace("running_var", "num_batches_tracked")] = torch.tensor(3)
+    torch.save(sd, path)
+    return sd
+
+
+def per_forward_launches(forwards, k3="k3_eval"):
+    """The launches of ``forwards`` MMVit4 evaluation forwards: K1f, K2f and
+    K3 (``k3_step``: as many as at a lean batch)."""
+    want = dict.fromkeys(KERNEL_INFO, 0)
+    per = MODEL_LAUNCHES["MMVit4"]
+    want.update(correlation_fusion=forwards * per["k1"], fused_attention=forwards * per["k2"],
+                relu_instancenorm=forwards * per[k3])
+    return want
+
+
+def phase_mat_import(ops, tmp):
+    """Phase 14: bring trained weights into the port and re-evaluate them.
+    ``MAT_SET`` patches written as ``.mat`` files, a reference ``.pt`` of a
+    seeded MMVit4 imported by ``run.import_checkpoint.main`` into a run
+    directory, and ``run.evaluate.main --run-dir --segplot-dir`` over the
+    ``.mat`` directories at B=8 in bf16, with the counters reset just before
+    and read just after (per B=8 forward K1f 1, K2f 4, K3 27; the B=1
+    segplot forwards, lean by the batch rule, K1f 1, K2f 4, K3 15 each,
+    printed apart). Its metrics must equal those of ``run.evaluate.main
+    --weights`` of the same ``.pt`` over the port's pack of the same
+    directories bit for bit, each test image must have its two PNGs, and a
+    manifest of two runs must give two equal results. Returns the counts."""
+    from corrifnet_tpu_torch.data import cross_val, pack_mat_directory
+    from corrifnet_tpu_torch.run.evaluate import main as evaluate_main
+    from corrifnet_tpu_torch.run.import_checkpoint import main as import_main
+
+    root = Path(tmp) / "phase14"
+    with timed("writing the .mat files"):
+        dirs = write_mat_dirs(root, MAT_SET)
+    size = sum(f.stat().st_size for f in root.rglob("*.mat"))
+    log(f"  {MAT_SET} patches as .mat files, {size} bytes")
+    pt = root / "Finaliremmodel0.pt"
+    reference_checkpoint(pt)
+    for run in ("run_a", "run_b"):
+        import_main(["MMVit4", str(pt), str(root / run)])
+    if not (root / "run_a" / "Finaliremmodel0").is_file():
+        raise AssertionError("import_checkpoint wrote no Finaliremmodel0")
+    split = {"fno": 2, "fsiz": 2, "synthetic_seed": None}
+    mat_cfg = write_run_inputs(MAT_SET, tmp, "mat14.json", data_dirs=dirs, **split)
+    pack = pack_mat_directory(dirs["rgb"], dirs["all20"], dirs["mask"], root / "pack.npz",
+                              MAT_SET)
+    pack_cfg = write_run_inputs(MAT_SET, tmp, "pack14.json", data_pack=str(pack), **split)
+    tsind, _, _ = cross_val(MAT_SET, 2, 2)
+
+    log(f"  run.evaluate --weights {pt.name} over the pack")
+    reset_counts(ops)
+    by_weights = evaluate_main(["--config", str(pack_cfg), "--weights", str(pt),
+                                "--device", "cuda"])
+    weights_counts = read_counts(ops)
+    forwards = len(by_weights["batch_seconds"])
+    log(f"  launches over {forwards} B={EVAL_B} forwards: {weights_counts}")
+    if weights_counts != per_forward_launches(forwards):
+        raise AssertionError(f"--weights launches: {weights_counts}")
+
+    log("  run.evaluate --run-dir --segplot-dir over the .mat directories")
+    png = root / "png"
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    res = evaluate_main(["--config", str(mat_cfg), "--run-dir", str(root / "run_a"),
+                         "--segplot-dir", str(png), "--device", "cuda"])
+    counts = read_counts(ops)
+    log(f"  run-directory evaluation with segplots {time.perf_counter() - t0:.2f} s")
+    r = res["run"]
+    forwards = len(r["batch_seconds"])
+    batched = per_forward_launches(forwards)
+    singles = {k: counts[k] - batched[k] for k in counts}
+    log(f"  launches: {counts}; of the {forwards} B={EVAL_B} forwards {batched}; of the "
+        f"{r['n_images']} B=1 segplot forwards {singles}")
+    if (r["n_images"] != len(tsind) or forwards != -(-len(tsind) // EVAL_B)
+            or r["batch_size"] != EVAL_B):
+        raise AssertionError(f"run-directory evaluation: {r}")
+    if singles != per_forward_launches(r["n_images"], k3="k3_step"):
+        raise AssertionError(f"segplot forwards' launches: {singles}")
+    log("  --run-dir: " + ", ".join(f"{k} {r[k]!r}" for k in MAT_METRICS))
+    log("  --weights: " + ", ".join(f"{k} {by_weights[k]!r}" for k in MAT_METRICS))
+    moved = {k: (r[k], by_weights[k]) for k in MAT_METRICS if r[k] != by_weights[k]}
+    if moved:
+        raise AssertionError(f"--run-dir over .mat against --weights over the pack: {moved}")
+    missing = [f"{stem}_{i}.png" for i in tsind for stem in ("segmentation_image", "test_image")
+               if not (png / f"{stem}_{i}.png").is_file()]
+    if missing or len(list(png.iterdir())) != 2 * len(tsind):
+        raise AssertionError(f"segplot PNGs: missing {missing}, {sorted(os.listdir(png))}")
+
+    manifest = root / "runs.txt"
+    manifest.write_text(f"first\n{root / 'run_a'}\nsecond\n{root / 'run_b'}\n")
+    runs = evaluate_main(["--config", str(mat_cfg), "--manifest", str(manifest),
+                          "--device", "cuda"])
+    if list(runs) != ["first", "second"] or any(
+            runs[n][k] != r[k] for n in runs for k in MAT_METRICS):
+        raise AssertionError(f"manifest runs: {runs}")
+    log("  manifest of two runs: equal to each other and to --run-dir")
+    shutil.rmtree(root)
+    return counts
+
+
 def phase_conv_family(ops, tmp):
     """Phase 12: MMVit2, then mmformer, through both entry points at full
     width, and card against CPU in f32. Returns {model: (evaluation
@@ -2323,6 +2476,11 @@ def main():
                 "points and card against CPU")
             with timed("phase 13"):
                 phase_zoo(ops, tmp)
+            log("phase 14: trained weights into the port, re-evaluated: .mat directories, "
+                "run.import_checkpoint, run.evaluate --run-dir/--segplot-dir/--manifest, "
+                "MMVit4, B=8, bf16")
+            with timed("phase 14"):
+                phase_mat_import(ops, tmp)
         finally:
             os.chdir(here)
     for counts, fused_counts in ((eval_launches, fused_eval_launches),

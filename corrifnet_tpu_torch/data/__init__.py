@@ -18,6 +18,7 @@ from corrifnet_tpu_torch.data.dstl import (
     load_dstl,
     load_pack,
     normalize_per_fold,
+    pack_mat_directory,
     synthetic_dstl,
 )
 
@@ -33,6 +34,7 @@ __all__ = [
     "make_batches",
     "normalize_per_fold",
     "num_batches",
+    "pack_mat_directory",
     "synthetic_dstl",
     "wire_cast_batch",
     "write_permutation",

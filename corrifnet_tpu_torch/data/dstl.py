@@ -8,15 +8,17 @@ The reference loads per-patch ``.mat`` files (RGB patches, 20-channel cubes
 sliced into NIR and SWIR, building masks), moves channels to NCHW, subtracts
 per-channel means computed on the *training fold only* (F8_IMAGES4.py:60-79),
 stacks the three modalities into ``(N, 3, 3, 224, 224)`` and replicates the
-masks x3 along the modality axis (F8_IMAGES4.py:87-88). Here the sources are
-an ``.npz`` pack made by the JAX package's ``pack_mat_directory`` or the
-synthetic generator; reading the raw ``.mat`` directories is still to be
-ported (see ROADMAP.md).
+masks x3 along the modality axis (F8_IMAGES4.py:87-88). The sources, in the
+JAX package's order: an ``.npz`` pack made by :func:`pack_mat_directory`,
+the raw ``.mat`` directories (``data_dirs``: ``rgb``, ``all20``, ``mask``;
+read with ``scipy.io.loadmat``; masks and cubes paired to the RGB patches by
+file name, F8_IMAGES4.py:26), or the synthetic generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -27,10 +29,14 @@ __all__ = [
     "load_dstl",
     "load_pack",
     "normalize_per_fold",
+    "pack_mat_directory",
     "synthetic_dstl",
 ]
 
 LIM = 224  # patch side (F8_IMAGES4.py:39)
+NIR_CHANNELS = (9, 10, 11)  # of the 20-channel cube, F8_IMAGES4.py:41-43
+SWIR_CHANNELS = (12, 13, 14)  # F8_IMAGES4.py:45-47
+_DATA_DIRS = ("rgb", "all20", "mask")  # the config's data_dirs keys
 
 
 @dataclasses.dataclass
@@ -103,6 +109,53 @@ def synthetic_dstl(
     return normalize_per_fold(rgb, nir, swir, masks, trind)
 
 
+def _load_one_mat(path, key: str = "inputPatch") -> np.ndarray:
+    """One array of a ``.mat`` file."""
+    import scipy.io as sio
+
+    return sio.loadmat(path, verify_compressed_data_integrity=False)[key]
+
+
+def _load_mat_dir(directory, limit: int, key: str = "inputPatch", names=None):
+    """(names, float32 array) of up to ``limit`` ``.mat`` files of
+    ``directory``, in sorted order; with ``names``, exactly those files, a
+    missing one raising ``FileNotFoundError`` that names it (the reference
+    pairs the masks to the RGB patches by file name,
+    ``class06_mats/{rgb_name}``, F8_IMAGES4.py:26)."""
+    if names is None:
+        names = sorted(os.listdir(directory))[:limit]
+    arrays = []
+    for name in names:
+        path = os.path.join(directory, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"counterpart file {name!r} missing from {directory}: the RGB, "
+                "cube and mask directories must share file names")
+        arrays.append(_load_one_mat(path, key))
+    return names, np.asarray(arrays, dtype=np.float32)
+
+
+def _read_mat_dirs(rgb_dir, all20_dir, mask_dir, limit):
+    """(names, rgb, nir, swir, masks) of the first ``limit`` patches, NCHW."""
+    names, rgb = _load_mat_dir(rgb_dir, limit)
+    _, cube = _load_mat_dir(all20_dir, limit, names=names)
+    _, mask = _load_mat_dir(mask_dir, limit, names=names)
+    return (names, np.moveaxis(rgb, 3, 1), np.moveaxis(cube[..., list(NIR_CHANNELS)], 3, 1),
+            np.moveaxis(cube[..., list(SWIR_CHANNELS)], 3, 1),
+            mask.reshape(len(names), 1, LIM, LIM))
+
+
+def pack_mat_directory(rgb_dir, all20_dir, mask_dir, out_path, limit: int) -> Path:
+    """Convert the reference's ``.mat`` layout once into one compressed
+    ``.npz`` (``rgb``, ``nir``, ``swir``, ``masks``, ``names``) that
+    :func:`load_pack` reads."""
+    names, rgb, nir, swir, masks = _read_mat_dirs(rgb_dir, all20_dir, mask_dir, limit)
+    out = Path(out_path)
+    np.savez_compressed(out, rgb=rgb, nir=nir, swir=swir, masks=masks,
+                        names=np.asarray(names))
+    return out
+
+
 def load_pack(pack_path, trind: np.ndarray, limit: Optional[int] = None) -> DstlArrays:
     """Load an ``.npz`` pack (``rgb``, ``nir``, ``swir``, ``masks``) and normalize."""
     with np.load(pack_path, allow_pickle=False) as z:
@@ -119,18 +172,27 @@ def load_dstl(
     data_dirs: Optional[dict] = None,
 ) -> DstlArrays:
     """``get_images4`` equivalent (F8_IMAGES4.py:11-95): an explicit pack
-    file, else synthetic data when ``synthetic_seed`` is given."""
+    file, else the ``.mat`` directories of ``data_dirs`` (``rgb``,
+    ``all20``, ``mask``), else synthetic data when ``synthetic_seed`` is
+    given. A ``data_dirs`` that names no directory under one of its keys, or
+    whose RGB directory holds fewer than ``train_set_size`` files, raises
+    (the JAX package falls through to the synthetic data on a missing RGB
+    directory)."""
     if pack_path and Path(pack_path).exists():
         return load_pack(pack_path, trind, limit=train_set_size)
     if data_dirs:
-        raise NotImplementedError(
-            "reading raw .mat directories (data_dirs) is not ported to "
-            "corrifnet_tpu_torch yet (see ROADMAP.md): make an .npz pack with "
-            "the JAX package's pack_mat_directory and pass data_pack"
-        )
+        dirs = [data_dirs.get(k) for k in _DATA_DIRS]
+        absent = [k for k, d in zip(_DATA_DIRS, dirs) if not (d and os.path.isdir(d))]
+        if absent:
+            raise FileNotFoundError(f"data_dirs {absent} name no directory: {data_dirs}")
+        names, rgb, nir, swir, masks = _read_mat_dirs(*dirs, train_set_size)
+        if len(names) < train_set_size:
+            raise FileNotFoundError(f"{dirs[0]} holds {len(names)} files, fewer than "
+                                    f"train_set_size {train_set_size}")
+        return normalize_per_fold(rgb, nir, swir, masks, trind)
     if synthetic_seed is not None:
         return synthetic_dstl(train_set_size, trind, seed=synthetic_seed)
     raise FileNotFoundError(
-        "No DSTL source found: pass data_pack or synthetic_seed for "
+        "No DSTL source found: pass data_pack, data_dirs or synthetic_seed for "
         "generated data."
     )

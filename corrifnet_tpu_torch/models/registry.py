@@ -36,7 +36,7 @@ from corrifnet_tpu_torch.models.robustseg import RobustMseg
 from corrifnet_tpu_torch.models.segformer import Segformer
 from corrifnet_tpu_torch.models.unet import UNetV2
 
-__all__ = ["ModelSpec", "create_model", "get_spec"]
+__all__ = ["ModelSpec", "available_models", "create_model", "get_spec"]
 
 
 # the model options of create_model and their defaults (no effect when unset)
@@ -73,6 +73,11 @@ def get_spec(name: str) -> ModelSpec:
             f"modeltype {name!r} has no PyTorch port; see ROADMAP.md"
         )
     return _REGISTRY[name]
+
+
+def available_models():
+    """The model ids of the registry, sorted."""
+    return sorted(_REGISTRY)
 
 
 def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,

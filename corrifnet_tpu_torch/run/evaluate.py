@@ -1,8 +1,8 @@
 """Re-evaluate a model over the test fold (allJaccardResults_irem_f1_jcrd.py).
 
-Counterpart of ``corrifnet_tpu/run/evaluate.py:39-177``, on the port's own
-config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack or
-synthetic) -> batches of
+Counterpart of ``corrifnet_tpu/run/evaluate.py:33-177``, on the port's own
+config and data modules: config -> ``cross_val`` -> ``load_dstl`` (pack,
+``.mat`` directories or synthetic) -> batches of
 ``max(mini_batch_size, 8)`` -> forward -> per-image (jaccard2, f1) on
 modality channel 0 -> mean and std. A 4-D model (UNetV2, Segformer,
 DeepLabv3_plus, ELANet, FASSDNet, ENet) is given modality 0 and channel 0 of the masks *whatever the
@@ -18,10 +18,23 @@ UNetV2, Segformer, DeepLabv3_plus, ELANet, FASSDNet or ENet), converted by
 reference's (its BatchNorm step counters, UNetV2's dead up-sampling weights
 and ENet's dead ``project_layer`` dropped, its static tables checked against
 the port's).
-Without it the model is initialized from ``cfg.seed``.
+Without it the model is initialized from ``cfg.seed``, and one JSON line
+gives the result.
+
+``--run-dir`` (or ``--manifest``: alternating run-name / run-directory
+lines, allJaccardResults:45-52) evaluates each run's ``Finaliremmodel{index}``
+(a port checkpoint: written by ``run.main`` or ``run.import_checkpoint``),
+restored strictly, and prints one line per run,
+``name: jaccard m±s f1 m±s (n=…)``; ``--segplot-dir`` writes the
+``segplot_indexed`` PNGs of each test image of a 5-D model from a B=1
+forward. A JAX run's orbax checkpoint is refused, naming
+``scripts/export_jax_checkpoint.py``. Unlike the JAX package's
+``evaluate_run``, which never reads ``data_dirs``, the data come from the
+config as in a training run.
 
     python -m corrifnet_tpu_torch.run.evaluate --config model0.txt \
-        [--weights weights.npz] [--device cuda]
+        [--weights weights.npz | --run-dir RUN | --manifest runs.txt]
+        [--index 0] [--segplot-dir DIR] [--device cuda]
 """
 
 from __future__ import annotations
@@ -55,10 +68,12 @@ from corrifnet_tpu_torch.models import (
 from corrifnet_tpu_torch.models.jax_import import unflatten_variables
 from corrifnet_tpu_torch.models.multisenseseg import _amm_relative_bias, _relative_position_index
 from corrifnet_tpu_torch.models.registry import get_spec
+from corrifnet_tpu_torch.run.segplot import segplot_indexed
+from corrifnet_tpu_torch.train.checkpoint import Checkpointer, final_ckpt_name
 from corrifnet_tpu_torch.utils.determinism import deterministic
 
 __all__ = ["compute_dtype", "evaluate_run", "evaluation_arrays", "load_weights", "main",
-           "per_image_metrics"]
+           "per_image_metrics", "read_manifest", "restore_run", "write_segplots"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -234,10 +249,48 @@ def per_image_metrics(model, images, masks, indices, batch_size, device):
     return np.concatenate(jacks), np.concatenate(f1s), seconds
 
 
+def read_manifest(path):
+    """[(run name, run directory)] of a manifest's alternating lines
+    (allJaccardResults:45-52)."""
+    lines = [ln.strip() for ln in Path(path).read_text().splitlines() if ln.strip()]
+    return list(zip(lines[0::2], lines[1::2]))
+
+
+def restore_run(run_dir, index=0):
+    """The port ``state_dict`` ``Finaliremmodel{index}`` of ``run_dir``, on
+    the CPU. A JAX run's orbax directory raises ``ValueError`` naming the
+    export script."""
+    name = final_ckpt_name(index)
+    path = Path(run_dir) / name
+    if path.is_dir():
+        raise ValueError(
+            f"{path} is an orbax checkpoint, a JAX run's: export it where jax and orbax "
+            f"are installed with `python scripts/export_jax_checkpoint.py --config CONFIG --run-dir "
+            f"{run_dir} --index {index} --out w.npz`, then `python -m "
+            f"corrifnet_tpu_torch.run.import_checkpoint MODEL w.npz RUN_DIR`")
+    if not path.is_file():
+        raise FileNotFoundError(f"no checkpoint {name} in {run_dir}")
+    return Checkpointer(run_dir).restore(name)
+
+
+@torch.no_grad()
+def write_segplots(model, data, indices, out_dir, device):
+    """``segplot_indexed`` PNGs of each image of ``indices`` from a B=1
+    forward, with the training means (``corrifnet_tpu/run/evaluate.py:123-140``)."""
+    for idx in indices:
+        out = model(torch.from_numpy(data.images[idx:idx + 1]).to(device)).float().cpu().numpy()
+        image = np.moveaxis(data.images[idx, 0], 0, -1)
+        segplot_indexed(out_dir, image.shape[0], image, out[0, 0, 0], data.masks[idx, 0, 0],
+                        data.tr_mean_r, data.tr_mean_g, data.tr_mean_b, indx=int(idx))
+
+
 @deterministic()
-def evaluate_run(cfg, weights=None, device="cuda"):
+def evaluate_run(cfg, state_dict=None, device="cuda", segplot_dir=None):
     """Evaluate ``cfg.modeltype`` over ``cfg``'s test fold on ``device``,
-    under ``utils.determinism.deterministic()``, as a training run.
+    under ``utils.determinism.deterministic()``, as a training run, with the
+    weights of ``state_dict`` (a port ``state_dict``, loaded strictly), else
+    the seed's; with ``segplot_dir``, a 5-D model also writes each test
+    image's overlay.
 
     ``device="cuda"`` runs the kernels; with no GPU that raises, it never
     falls back to the CPU. Returns the metric means and stds, the image
@@ -251,11 +304,14 @@ def evaluate_run(cfg, weights=None, device="cuda"):
                          seed=cfg.seed,
                          pallas_fused_blocks=cfg.pallas_fused_blocks,
                          decoder_lean=cfg.decoder_lean)
-    if weights is not None:
-        model.load_state_dict(load_weights(weights, cfg.modeltype), strict=True)
-    images, masks = evaluation_arrays(data, get_spec(cfg.modeltype))
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    spec = get_spec(cfg.modeltype)
+    images, masks = evaluation_arrays(data, spec)
     bs = max(cfg.mini_batch_size, 8)
     jacks, f1s, seconds = per_image_metrics(model, images, masks, tsind, bs, device)
+    if segplot_dir is not None and spec.input_kind == "5d":
+        write_segplots(model, data, tsind, segplot_dir, device)
     return {
         "jaccard_mean": float(jacks.mean()),
         "jaccard_std": float(jacks.std()),
@@ -268,15 +324,44 @@ def evaluate_run(cfg, weights=None, device="cuda"):
 
 
 def main(argv=None):
+    """Without ``--run-dir`` or ``--manifest``: one evaluation, printed as a
+    JSON line and returned. With either: ``{run name: result}``, one printed
+    line per run."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", required=True, help="18-line .txt or .json config")
     ap.add_argument("--weights", default=None, help=".npz (JAX tree) or .pt")
+    ap.add_argument("--run-dir", default=None, help="a run directory of the port")
+    ap.add_argument("--manifest", default=None,
+                    help="alternating run-name / run-directory lines")
+    ap.add_argument("--index", type=int, default=None,
+                    help="evaluate Finaliremmodel{index} of each run (default 0)")
+    ap.add_argument("--segplot-dir", default=None,
+                    help="write each test image's overlay PNGs here (5-D models)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    r = evaluate_run(load_config(args.config), args.weights, args.device)
-    print(json.dumps(r))
-    return r
+    if not (args.run_dir or args.manifest):
+        if args.index is not None or args.segplot_dir is not None:
+            ap.error("--index and --segplot-dir need --run-dir or --manifest")
+        cfg = load_config(args.config)
+        weights = None if args.weights is None else load_weights(args.weights, cfg.modeltype)
+        r = evaluate_run(cfg, weights, args.device)
+        print(json.dumps(r))
+        return r
+    if args.weights is not None:
+        ap.error("--weights cannot be given with --run-dir or --manifest")
+    if args.run_dir and args.manifest:
+        ap.error("give --run-dir or --manifest, not both")
+    cfg = load_config(args.config)
+    runs = read_manifest(args.manifest) if args.manifest else [("run", args.run_dir)]
+    results = {}
+    for name, run_dir in runs:
+        r = evaluate_run(cfg, restore_run(run_dir, args.index or 0), args.device,
+                         args.segplot_dir)
+        results[name] = r
+        print(f"{name}: jaccard {r['jaccard_mean']:.5f}±{r['jaccard_std']:.5f} "
+              f"f1 {r['f1_mean']:.5f}±{r['f1_std']:.5f} (n={r['n_images']})")
+    return results
 
 
 if __name__ == "__main__":

@@ -38,10 +38,13 @@ class Checkpointer:
         self.run_dir = Path(run_dir).resolve()
         self.run_dir.mkdir(parents=True, exist_ok=True)
 
-    def save(self, name: str, model: torch.nn.Module) -> Path:
+    def save(self, name: str, model) -> Path:
+        """``model``'s ``state_dict`` (or ``model`` itself, a ``state_dict``)
+        as ``{name}``, on the CPU."""
         path = self.run_dir / name
         tmp = self.run_dir / f"{name}.{os.getpid()}.tmp"
-        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+        state = {k: v.detach().cpu() for k, v in sd.items()}
         torch.save(state, tmp)
         os.replace(tmp, path)
         return path

@@ -102,7 +102,7 @@ def test_load_pack_and_load_dstl_equal_the_jax_package(tmp_path):
 
 def test_load_dstl_sources(tmp_path):
     trind = np.arange(3)
-    with pytest.raises(NotImplementedError, match="data_dirs"):
+    with pytest.raises(FileNotFoundError, match=r"data_dirs \['all20', 'mask'\] name no"):
         port_data.load_dstl(3, trind, data_dirs={"rgb": str(tmp_path)})
     with pytest.raises(FileNotFoundError):
         port_data.load_dstl(3, trind)

@@ -118,7 +118,7 @@ def test_state_dict_round_trip_is_exact(pack_stage1):
 _BLOCKED_IMPORT = textwrap.dedent("""
     import importlib.abc, json, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "corrifnet_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "corrifnet_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -139,7 +139,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                 "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
                 "nn.resize", "nn.transformer", "ops", "ops.attention", "ops.build",
                 "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
-                "run.evaluate", "run.main", "run.segplot", "testing", "train",
+                "run.evaluate", "run.import_checkpoint", "run.main", "run.segplot",
+                "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
                 "train.state", "utils", "utils.determinism", "utils.logfiles"):
         importlib.import_module("corrifnet_tpu_torch." + mod)
