@@ -60,7 +60,9 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    multimodal transformer at N=1536 (B=8 forward; B=4 forward and backward
    at rate 0 and 0.1; the keep masks at n=1536), K3 and K3b at the conv
    encoders' and the larger RFM volumes (the plan's regime printed with
-   each);
+   each); last K3 and K3b at the 12 chain volumes of the depth-pruned
+   decoder (``k3_pruned_shapes``, prefixes 2-4 rows deep, B=4), with their
+   device time, bound and the library's;
 4. the evaluation slice: ``run.evaluate.main`` over 16 synthetic 224x224
    images at batch 8 in bf16, with every launch counter reset just before
    and read just after (K1 1, K2 4, K3 27, K3b 0 launches per
@@ -163,10 +165,30 @@ Phases, each of which raises on failure (exit code 1, no result lines):
    equal bit for bit those of ``run.evaluate.main --weights`` of the same
    ``.pt`` over the port's ``pack_mat_directory`` of the same directories,
    each test image has its two PNGs, and a ``--manifest`` of the two run
-   directories gives two equal results.
+   directories gives two equal results;
+15. MMVit4's config levers (``phase_levers``), each part timed: (a)
+   ``depth_mode: pruned``: ``run.main.main`` as phase 5 (per step K1f 1,
+   K1b 1, K2f 4, K2b 4, K3 27, K3b 27: the pruned chain is never lean), a
+   B=8 bf16 forward beside the full-depth one (launches, device ms,
+   images/s, peak memory), phase 6 and phase 7 for the pruned model, and
+   one B=8 pruned forward each of MMVit2 and mmformer in f32, card against
+   CPU; (b) ``fuse_expand_bn: true``: ``run.main.main`` as phase 5 (the
+   launches of phase 5), phase 6 for the model and its output against the
+   same weights without the flag (1e-4), and with ``pallas_fused_blocks``
+   a B=8 forward and a B=4 step launching K4 as phase 8 and equal bit for
+   bit to the fused model without the flag; (c) ``decoder_remat: true``
+   with ``decoder_lean: false``: a B=4 bf16 step equal bit for bit to the
+   same step without it, K3 27 + 12 (the chain's stages run again in the
+   backward), K3b 27, peak memory beside; (d) ``decoder_chunk: 8`` at B=4
+   (lean): peak memory of a bf16 step beside the unchunked one, and an f32
+   step's gradients against the unchunked step's within phase 7's witness
+   bound (``chunk_check``); (e) ``run.profile.main(["MMVit4", "--memory",
+   "--batch-size", "4", "--device", "cuda"])``: the parameter count of
+   ``create_model``'s MMVit4, the FLOPs the CPU count, the step's peak
+   beside phase 5's.
 Every phase's seconds are logged, and the whole run's.
 
-Every training run of phases 5, 8, 11, 12 and 13 runs under the entry
+Every training run of phases 5, 8, 11, 12, 13 and 15 runs under the entry
 point's ``deterministic()`` scope (PyTorch's deterministic algorithms,
 cuDNN's deterministic algorithms without benchmarking), so that an op
 without a deterministic implementation raises; phase 3's timings run
@@ -281,6 +303,17 @@ def k3_conv_family_shapes(b, chain=True):
     return k3_encoder_shapes(b) + rfm + (k3_shapes(b)[5:] if chain else [])
 
 
+def k3_pruned_shapes(b):
+    """(shape, launches per forward) of the 12 K3 calls of the depth-pruned
+    chain (``depth_mode='pruned'``; the 15 RFM blocks' are ``k3_shapes``'):
+    each level's up2 conv keeps 5 rows of the doubled depth (4 at level 1)
+    and its conv drops one, the skip-concat conv drops one more, the 1x1
+    keeps them (JAX's pruned DecoderFuse under ``jax.eval_shape``)."""
+    return [((b, 4, 16, 16, 128), 1), ((b, 3, 16, 16, 64), 2), ((b, 4, 32, 32, 32), 1),
+            ((b, 3, 32, 32, 32), 2), ((b, 4, 64, 64, 16), 1), ((b, 3, 64, 64, 16), 2),
+            ((b, 3, 128, 128, 8), 1), ((b, 2, 128, 128, 8), 2)]
+
+
 # launches per forward of each model: K1f, K2f, and K3 at B=8 (the standard
 # chain) and at B=4 (lean: the chain's 12 stages end in relu_in_stats)
 MODEL_LAUNCHES = {
@@ -298,6 +331,11 @@ MODEL_LAUNCHES = {
     "FASSDNet": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
     "ENet": {"k1": 0, "k2": 0, "k3_eval": 0, "k3_step": 0},
 }
+# MMVit4 with depth_mode='pruned': never lean, so K3 ends all 27 stages and
+# K3b runs 27 times a step, at every batch size
+PRUNED_LAUNCHES = {"k1": 1, "k2": 4, "k3_eval": K3_STANDARD, "k3_step": K3_STANDARD}
+CHAIN_STAGES = K3_STANDARD - K3_LEAN  # the decoder chain's GeneralConv3d stages
+
 # phase 13's models, in order; the last six take one modality, chosen by
 # chindex (DeepLabv3_plus and ENet the default's, 0)
 ZOO = ("RFNet", "RobustMseg", "MultiSenseSeg", "UNetV2", "Segformer", "DeepLabv3_plus",
@@ -1374,7 +1412,8 @@ def phase_kernels(ops):
     step.report(f"B={TRAIN_B} training step")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    failures = fwd.failures + rate0.failures + step.failures + phase_kernels_conv_family(ops)
+    failures = (fwd.failures + rate0.failures + step.failures
+                + phase_kernels_conv_family(ops) + phase_kernels_pruned(ops))
     if failures:
         raise AssertionError(f"kernels outside their bounds: {failures}")
     return step.rows
@@ -1408,6 +1447,24 @@ def phase_kernels_conv_family(ops):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return fwd.failures + rate0.failures + step.failures
+
+
+def phase_kernels_pruned(ops):
+    """Phase 3 at the depth-pruned decoder's chain volumes: K3 and K3b at the
+    12 chain calls of a B=4 step (``k3_pruned_shapes``: prefixes 2-4 rows
+    deep; the 15 RFM calls are the default's, checked above), with their
+    device time, bound and the library's. Inputs from a generator of their
+    own. Returns the failures."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    log(f" the depth-pruned decoder's chain (B={TRAIN_B}), sums over one training step "
+        f"(the 12 chain calls):")
+    step = Tally()
+    check_instancenorm(ops, step, TRAIN_B, gen, backward=True,
+                       shapes=k3_pruned_shapes(TRAIN_B))
+    step.report(f"pruned chain B={TRAIN_B} training step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return step.failures
 
 
 # ------------------------------------------------------------------ slices
@@ -1500,22 +1557,26 @@ def phase_eval_slice(ops, tmp, fused=False, model="MMVit4"):
                       "peak_bytes": peak}
 
 
-def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False):
+def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False, options=None,
+                      per=None):
     """The training CLI at full width for one epoch of 8 steps of ``model``,
     validation by checkpoint and the test; launch counters reset just before
     and read just after. With ``repeat``, ``--indices 0,1`` over a ``{i}``
     config template: two identical runs, whose final checkpoints and log
     values must be equal bit for bit. A 4-D model runs on the modality that
     its ``ZOO_CONFIG`` chindex picks, with a third of the resident bytes.
+    ``options``: more config fields (MMVit4's levers), and ``per`` the
+    launches per forward and step they give (``MODEL_LAUNCHES``' form).
     Returns the launch counts of the run(s) and the (first) run's timed
     numbers."""
     from corrifnet_tpu_torch.run.main import main as train_main
 
-    name = f"train_{int(fused)}_{model}"
+    options = options or {}
+    name = f"train_{int(fused)}_{model}" + "".join(f"_{k}" for k in options)
     for i in (0, 1) if repeat else (0,):
         cfg = write_run_inputs(TRAIN_SET, tmp, f"{name}_{i}.json", n_epochs=1,
                                pallas_fused_blocks=fused, modeltype=model,
-                               **ZOO_CONFIG.get(model, {}))
+                               **ZOO_CONFIG.get(model, {}), **options)
     args = (["--config", str(Path(tmp) / f"{name}_{{i}}.json"), "--indices", "0,1"]
             if repeat else ["--config", str(cfg)])
     torch.cuda.empty_cache()
@@ -1532,7 +1593,7 @@ def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False):
     steps = r["train_steps"]
     log(f"  {len(runs)} run(s) of {steps} training steps and {TRAIN_EVALS} evaluation "
         f"batches in {wall:.2f} s; launches {launches}")
-    check_train_launches(launches, steps, fused, model, runs=len(runs))
+    check_train_launches(launches, steps, fused, model, runs=len(runs), per=per)
     for i, run in runs.items():
         check_resident(run, RESIDENT_BYTES if input_kind(model) == "5d" else RESIDENT_BYTES_4D)
         check_run(run, i, epochs=1, segplot=input_kind(model) == "5d",
@@ -1549,11 +1610,12 @@ def phase_train_slice(ops, tmp, fused=False, model="MMVit4", repeat=False):
                       "peak_bytes": peak}
 
 
-def check_train_launches(launches, steps, fused=False, model="MMVit4", runs=1):
+def check_train_launches(launches, steps, fused=False, model="MMVit4", runs=1, per=None):
     """The launches of ``runs`` runs of one epoch of ``steps`` training steps
-    of ``model`` and its TRAIN_EVALS evaluation batches."""
+    of ``model`` and its TRAIN_EVALS evaluation batches (``per``: the
+    launches per forward and step, ``MODEL_LAUNCHES[model]`` by default)."""
     evals = TRAIN_EVALS
-    per = MODEL_LAUNCHES[model]
+    per = per or MODEL_LAUNCHES[model]
     k1, k2, k3 = (runs * per[k] for k in ("k1", "k2", "k3_step"))
     want = {"correlation_fusion": k1 * (steps + evals), "correlation_fusion_bwd": k1 * steps,
             "fused_attention": k2 * (steps + evals), "fused_attention_bwd": k2 * steps,
@@ -1776,7 +1838,7 @@ def seeded_image(model="MMVit4"):
     return torch.randn((*lead, 3, 224, 224), generator=torch.Generator().manual_seed(0))
 
 
-def phase_whole_model(fused=False, model="MMVit4"):
+def phase_whole_model(fused=False, model="MMVit4", options=None):
     """One image through ``model`` in f32 on the card (kernels) and on the
     CPU (plain versions), same weights: max |difference| of the
     probabilities within WHOLE_MODEL_ATOL; for MMVit2 and mmformer within
@@ -1784,22 +1846,25 @@ def phase_whole_model(fused=False, model="MMVit4"):
     moves under a 1e-6 change of the input (MMVit2's correlation softmaxes
     saturate at random initialization and amplify f32 rounding), and for
     the zoo models. The output is (1, 3, 1, 224, 224), or (1, 1, 224, 224)
-    for a 4-D model."""
+    for a 4-D model. ``options``: model options (MMVit4's levers). Returns
+    the card's output and its model."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm
 
+    options = options or {}
     x = seeded_image(model)
-    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0)
+    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
+                       **{k: v for k, v in options.items() if k != "fuse_expand_bn"})
     # O(1) activations, as trained statistics give (see calibrate_batchnorm;
     # MMVit2 and mmformer have no BatchNorm)
     if model in CALIBRATED:
         calibrate_batchnorm(cpu, x)
-    if fused:
+    if fused or options.get("fuse_expand_bn"):
         # same weights and statistics (the calibration hooks BatchNorm.forward,
-        # which the fused blocks do not call)
+        # which the fused blocks and the folded BatchNorms do not call)
         calibrated = cpu.state_dict()
         cpu = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
-                           pallas_fused_blocks=True)
+                           pallas_fused_blocks=fused, **options)
         cpu.load_state_dict(calibrated, strict=True)
     gpu = copy.deepcopy(cpu).to("cuda")
     with torch.no_grad():
@@ -1822,6 +1887,7 @@ def phase_whole_model(fused=False, model="MMVit4"):
         raise AssertionError("whole-model output malformed")
     if not diff <= bound:
         raise AssertionError(f"whole model GPU vs CPU {diff} > {bound}")
+    return out_gpu, gpu
 
 
 def phase_fused_block():
@@ -1892,7 +1958,7 @@ def gradient_agreement(got, want):
     return (diff / norm) ** 0.5, statistics.median(v for v, _ in l2), max(l2)
 
 
-def phase_train_step(decoder_lean=None, model="MMVit4"):
+def phase_train_step(decoder_lean=None, model="MMVit4", options=None):
     """One f32 training step of ``model`` at B=1 without dropout, BatchNorm
     (MMVit4's) on batch statistics: the loss and every gradient tensor on the
     card (kernels, forward and backward) against the CPU (plain versions),
@@ -1917,7 +1983,9 @@ def phase_train_step(decoder_lean=None, model="MMVit4"):
     norm. A backward that is wrong in one branch fails this: the skip gradients that the library's
     nearest-resize backward got wrong on the card (see nn/resize.py) read
     0.49 against a bound near 0.12. The kernels' own backward checks
-    (phase 3) are the tight ones."""
+    (phase 3) are the tight ones. ``options``: model options (MMVit4's
+    levers); with them MMVit4 too falls back on the float64 step for a
+    tensor outside the witness's bound."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm, zero_gradients
 
@@ -1926,7 +1994,7 @@ def phase_train_step(decoder_lean=None, model="MMVit4"):
     masks = (torch.rand((*x.shape[:-3], 1, 224, 224), generator=gen) > 0.5).float()
     valid = torch.ones(1)
     cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
-                       transformer_dropout=0.0, decoder_lean=decoder_lean)
+                       transformer_dropout=0.0, decoder_lean=decoder_lean, **(options or {}))
     if model == "MMVit4":
         calibrate_batchnorm(cpu, x)
     gpu = copy.deepcopy(cpu).to("cuda")
@@ -1964,7 +2032,7 @@ def phase_train_step(decoder_lean=None, model="MMVit4"):
         raise AssertionError("training step GPU vs CPU outside its bounds")
     if worst[0] <= bound_tensor:
         return
-    if model == "MMVit4":
+    if model == "MMVit4" and not options:
         raise AssertionError("training step GPU vs CPU outside its bounds")
     # the conv-encoder family's gradient is better conditioned than MMVit4's,
     # so its witness no longer covers the conv biases before ReLU+InstanceNorm,
@@ -2419,6 +2487,300 @@ def phase_decoder():
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ levers
+
+
+def lever_forward(ops, model, x):
+    """``model(x)`` without gradients, its launches (counters reset just
+    before, read just after), its device time from profiler traces of two
+    calls (a forward is thousands of kernels) and its median wall time (CUDA
+    events around each of 5 calls)."""
+    with torch.no_grad():
+        reset_counts(ops)
+        out = model(x)
+        launches = read_counts(ops)
+        dev = profiled_device_ms(lambda: model(x), launches=2)
+        wall = median_ms(lambda: model(x), reps=5)
+    return out, launches, dev, wall
+
+
+def pruned_forward(ops, eval_off):
+    """(a) A B=8 forward of MMVit4 in bf16 with ``depth_mode='pruned'``
+    beside the full-depth one, same weights and images: launches (pruned:
+    K1f 1, K2f 4, K3 27, nothing else), device ms, images/s, peak memory."""
+    from corrifnet_tpu_torch.models import create_model
+
+    x = torch.randn((EVAL_B, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
+    x = x.to("cuda")
+    got = {}
+    for mode in ("full", "pruned"):
+        model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+                             depth_mode=mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, launches, dev, wall = lever_forward(ops, model, x)
+        peak = torch.cuda.max_memory_allocated()
+        if out.shape != (EVAL_B, 3, 1, 224, 224) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{mode} forward output malformed")
+        log(f"  B={EVAL_B} bf16 forward, depth_mode {mode}: device {dev:.3f} ms (profiler, "
+            f"2 calls), wall median {wall:.3f} ms, images/s {EVAL_B / wall * 1e3:.2f}; peak "
+            f"memory allocated {peak} bytes; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        got[mode] = (out.float(), launches, dev)
+        del model
+    want = {"correlation_fusion": 1, "fused_attention": 4, "relu_instancenorm": K3_STANDARD}
+    launches = got["pruned"][1]
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"pruned forward launches {launches}, expected {want}")
+    log(f"  pruned / full device time {got['pruned'][2] / got['full'][2]:.3f}; phase 4's "
+        f"full-depth evaluation (this run): images/s {eval_off['images_per_s']:.3f}; the "
+        f"two outputs' largest difference "
+        f"{(got['pruned'][0] - got['full'][0]).abs().max().item():.3e} (a different function)")
+
+
+def family_pruned_forward(model):
+    """(a) One B=8 forward of MMVit2 or mmformer with ``depth_mode='pruned'``
+    in f32, card against CPU, same weights: within the larger of
+    WHOLE_MODEL_ATOL and twice the CPU's own change under a 1e-6 change of
+    the input (as phase 12's whole model)."""
+    from corrifnet_tpu_torch.models import create_model
+
+    x = torch.randn((EVAL_B, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
+    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0, depth_mode="pruned")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    with torch.no_grad():
+        out_gpu = gpu(x.to("cuda")).cpu()
+        t0 = time.perf_counter()
+        out_cpu = cpu(x)
+        t1 = time.perf_counter()
+        witness = (cpu(x * (1 + 1e-6)) - out_cpu).abs().max().item()
+    diff = (out_gpu - out_cpu).abs().max().item()
+    bound = max(WHOLE_MODEL_ATOL, 2 * witness)
+    log(f"  {model} pruned B={EVAL_B} f32: CPU {t1 - t0:.2f} s; max |GPU - CPU| {diff:.3e} "
+        f"(bound {bound:.3e}: {WHOLE_MODEL_ATOL}, or twice the witness {witness:.3e})")
+    if out_gpu.shape != (EVAL_B, 3, 1, 224, 224) or not bool(torch.isfinite(out_gpu).all()):
+        raise AssertionError(f"{model} pruned output malformed")
+    if not diff <= bound:
+        raise AssertionError(f"{model} pruned GPU vs CPU {diff} > {bound}")
+
+
+def lever_step(ops, options, dtype=torch.bfloat16, dropout=RATE, scale=1.0):
+    """One B=4 training step of MMVit4 (seed 0's weights) built with
+    ``options`` on the card under ``deterministic()``, dropout keyed by seed
+    0, seeded images (times ``scale``) and masks: (loss, {name: gradient on
+    the CPU}, launches, peak bytes). The gradients leave the card, so that a
+    step's peak does not hold an earlier step's. In float64 the model's
+    parameters are float64 and the kernels' call sites take their plain
+    versions (``float64_plain``)."""
+    from corrifnet_tpu_torch.models import create_model
+    from corrifnet_tpu_torch.nn import DropoutRng
+    from corrifnet_tpu_torch.train import masked_loss_and_jaccard
+    from corrifnet_tpu_torch.utils.determinism import deterministic
+
+    f64 = dtype == torch.float64
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn((TRAIN_B, 3, 3, 224, 224), generator=gen) * scale).to("cuda")
+    masks = (torch.rand((TRAIN_B, 3, 1, 224, 224), generator=gen) > 0.5).float().to("cuda")
+    valid = torch.ones(TRAIN_B, device="cuda")
+    model = create_model("MMVit4", dtype=dtype, device="cuda", seed=0,
+                         transformer_dropout=dropout, **options)
+    if f64:
+        model.double()
+    model.set_dropout_rng(DropoutRng(0, "cuda")).train()
+    with deterministic(), float64_plain() if f64 else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        out = model(x).float()
+        loss, _, _ = masked_loss_and_jaccard(out, masks, valid)
+        loss.backward()
+        launches = read_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return loss.detach().cpu(), grads, launches, peak
+
+
+def fused_bn_checks(ops):
+    """(b) ``fuse_expand_bn``: the f32 whole model card against CPU (phase
+    6's bound) and against the same weights without the flag on the card
+    (1e-4); with ``pallas_fused_blocks`` too, a B=8 bf16 forward and a B=4
+    bf16 step launch K4 as phase 8 counts and equal the fused model without
+    the flag bit for bit (the fused bottleneck returns before the flag is
+    read, as the JAX package's ``_fused``)."""
+    from corrifnet_tpu_torch.models import create_model
+
+    out_on, gpu_on = phase_whole_model(options={"fuse_expand_bn": True})
+    off = create_model("MMVit4", dtype=torch.float32, device="cuda", seed=0)
+    off.load_state_dict(gpu_on.state_dict(), strict=True)
+    with torch.no_grad():
+        out_off = off.eval()(seeded_image().to("cuda")).cpu()
+    diff = (out_on - out_off).abs().max().item()
+    log(f"  f32 B=1 forward, flag on against flag off on the card, same weights and "
+        f"statistics: max |difference| {diff:.3e} (bound {WHOLE_MODEL_ATOL})")
+    if not diff <= WHOLE_MODEL_ATOL:
+        raise AssertionError(f"fuse_expand_bn on against off: {diff}")
+    del off, gpu_on
+
+    x = torch.randn((EVAL_B, 3, 3, 224, 224), generator=torch.Generator().manual_seed(0))
+    x = x.to("cuda")
+    outs = {}
+    for flag in (False, True):
+        model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+                             pallas_fused_blocks=True, fuse_expand_bn=flag)
+        with torch.no_grad():
+            reset_counts(ops)
+            outs[flag] = model(x)
+            launches = read_counts(ops)
+        want = k4_counts(1, 0, True)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"fused forward (fuse_expand_bn {flag}) K4 launches "
+                                 f"{launches}, expected {want}")
+        del model
+    steps = {flag: lever_step(ops, {"pallas_fused_blocks": True, "fuse_expand_bn": flag})
+             for flag in (False, True)}
+    want = k4_counts(1, 1, True)
+    for flag, (_, _, launches, _) in steps.items():
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"fused step (fuse_expand_bn {flag}) K4 launches {launches}")
+    (l0, g0, _, _), (l1, g1, _, _) = steps[False], steps[True]
+    same = (torch.equal(outs[False], outs[True]) and torch.equal(l0, l1)
+            and sorted(g0) == sorted(g1) and all(torch.equal(g0[n], g1[n]) for n in g0))
+    log(f"  with pallas_fused_blocks: a B={EVAL_B} forward K4a "
+        f"{want['pointwise_conv_stats']}, K4c {want['conv3x3_fma_relu_stats']}, a B={TRAIN_B} "
+        f"step K4b {want['pointwise_conv_stats_bwd']}, K4d "
+        f"{want['conv3x3_fma_relu_stats_bwd']} with the flag on and off; the output, the loss "
+        f"and every gradient equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("fuse_expand_bn changed the fused configuration's results")
+
+
+def remat_check(ops):
+    """(c) ``decoder_remat`` with ``decoder_lean=false``: one B=4 bf16 step
+    (dropout 0.1) equal bit for bit to the same step without it, the loss
+    and every gradient; K3 launched 27 + 12 times (the chain's 12 stages
+    run again in the backward), K3b 27; peak memory beside."""
+    base = lever_step(ops, {"decoder_lean": False})
+    remat = lever_step(ops, {"decoder_lean": False, "decoder_remat": True})
+    (l0, g0, n0, p0), (l1, g1, n1, p1) = base, remat
+    same = (torch.equal(l0, l1) and sorted(g0) == sorted(g1)
+            and all(torch.equal(g0[n], g1[n]) for n in g0))
+    log(f"  B={TRAIN_B} bf16 step, decoder_lean false: K3 {n0['relu_instancenorm']} / "
+        f"{n1['relu_instancenorm']}, K3b {n0['relu_instancenorm_bwd']} / "
+        f"{n1['relu_instancenorm_bwd']} (remat off / on); loss {l0.item():.6f}; loss and "
+        f"{len(g0)} gradients equal bit for bit: {same}; peak memory allocated off {p0}, "
+        f"on {p1} bytes (on / off {p1 / p0:.3f})")
+    if not same:
+        raise AssertionError("decoder_remat changed the step's results")
+    if (n0["relu_instancenorm"], n1["relu_instancenorm"]) != (K3_STANDARD,
+                                                              K3_STANDARD + CHAIN_STAGES):
+        raise AssertionError(f"K3 launches {n0} / {n1}")
+    if n0["relu_instancenorm_bwd"] != K3_STANDARD or n1["relu_instancenorm_bwd"] != K3_STANDARD:
+        raise AssertionError(f"K3b launches {n0} / {n1}")
+
+
+def chunk_check(ops):
+    """(d) ``decoder_chunk: 8`` at B=4, where the decoder is lean: peak
+    memory of a bf16 step (dropout 0.1) beside the same step unchunked (K3
+    and K3b 15 each); then in f32 (TF32 off, dropout 0) the loss within
+    STEP_LOSS_ATOL of the unchunked step's and every gradient against it:
+    the whole gradient's and each tensor's relative L2 distance within
+    twice the witness's (the unchunked step against itself with the input
+    scaled by 1 + 1e-6, phase 7's yardstick: the chunks sum the same terms
+    in another order), a tensor outside that held against the step in
+    float64 on the card (within twice the larger of the unchunked f32
+    step's distance to it and the witness's worst)."""
+    (_, _, n0, p0), (_, _, n1, p1) = lever_step(ops, {}), lever_step(ops, {"decoder_chunk": 8})
+    log(f"  B={TRAIN_B} bf16 step (lean): K3 {n0['relu_instancenorm']} / "
+        f"{n1['relu_instancenorm']}, K3b {n0['relu_instancenorm_bwd']} / "
+        f"{n1['relu_instancenorm_bwd']}; peak memory allocated chunk 0 {p0}, chunk 8 {p1} "
+        f"bytes (8 / 0 {p1 / p0:.3f})")
+    if n0 != n1 or n1["relu_instancenorm"] != K3_LEAN or n1["relu_instancenorm_bwd"] != K3_LEAN:
+        raise AssertionError(f"chunked step launches {n1}, unchunked {n0}")
+
+    f32 = {"dtype": torch.float32, "dropout": 0.0}
+    l0, g0, _, _ = lever_step(ops, {}, **f32)
+    lw, gw, _, _ = lever_step(ops, {}, scale=1 + 1e-6, **f32)
+    l8, g8, _, _ = lever_step(ops, {"decoder_chunk": 8}, **f32)
+    whole, med, worst = gradient_agreement(g8, g0)
+    w_whole, w_med, w_worst = gradient_agreement(gw, g0)
+    bound_whole = STEP_WITNESS_FACTOR * w_whole
+    bound_tensor = STEP_WITNESS_FACTOR * w_worst[0]
+    dl = abs(l8.item() - l0.item())
+    log(f"  f32 step: loss chunk 8 {l8.item():.8f}, chunk 0 {l0.item():.8f} (|difference| "
+        f"{dl:.3e}, bound {STEP_LOSS_ATOL}); {len(g0)} gradients, ||chunk 8 - chunk 0|| / "
+        f"||chunk 0||: whole {whole:.3e} (bound {bound_whole:.3e}), per tensor median "
+        f"{med:.3e}, worst {worst[0]:.3e} at {worst[1]} (bound {bound_tensor:.3e}); the "
+        f"witness whole {w_whole:.3e}, worst {w_worst[0]:.3e} at {w_worst[1]}")
+    if sorted(g8) != sorted(g0) or not (dl <= STEP_LOSS_ATOL and whole <= bound_whole):
+        raise AssertionError("decoder_chunk step outside its bounds")
+    outside = [n for n in g0 if ((g8[n] - g0[n]).norm() / g0[n].norm().clamp_min(1e-30)
+                                 ).item() > bound_tensor]
+    if not outside:
+        return
+    _, ref, _, _ = lever_step(ops, {}, torch.float64, dropout=0.0)
+    per = {n: (((g8[n].double() - ref[n]).norm() / ref[n].norm()).item(),
+               ((g0[n].double() - ref[n]).norm() / ref[n].norm()).item()) for n in outside}
+    over = {n: v for n, v in per.items()
+            if v[0] > STEP_WITNESS_FACTOR * max(v[1], w_worst[0])}
+    log(f"  outside {bound_tensor:.3e}, against the step in float64 on the card, "
+        f"||g - g_f64|| / ||g_f64|| (chunk 8, chunk 0): {per}; over "
+        f"{STEP_WITNESS_FACTOR} times the larger of chunk 0's and the witness's: {over}")
+    if over:
+        raise AssertionError("decoder_chunk step outside its bounds")
+
+
+def profile_check(train_off):
+    """(e) ``run.profile.main`` for MMVit4 at B=4 with ``--memory`` on the
+    card: the parameter count that of ``models.create_model``'s MMVit4, the
+    FLOPs the count asked for the CPU, the step's peak printed beside phase
+    5's (the whole training run's peak)."""
+    from corrifnet_tpu_torch.models import create_model
+    from corrifnet_tpu_torch.run import profile as run_profile
+
+    r = run_profile.main(["MMVit4", "--memory", "--batch-size", str(TRAIN_B), "--device",
+                          "cuda"])
+    n_params = sum(p.numel() for p in create_model("MMVit4", device="cuda").parameters())
+    cpu_flops = run_profile.profile_model("MMVit4", TRAIN_B, 224, device="cpu")["flops"]
+    mem = r["train_step_memory"]
+    log(f"  params {r['params']} (create_model: {n_params}); flops {r['flops']} (asked for "
+        f"the CPU: {cpu_flops}); one B={TRAIN_B} bf16 step: peak {mem['peak_bytes']} bytes "
+        f"({mem['before_bytes']} allocated before it); phase 5's training run: peak "
+        f"{train_off['peak_bytes']} bytes")
+    if r["params"] != n_params or r["flops"] != cpu_flops or not mem["peak_bytes"] > 0:
+        raise AssertionError(f"run.profile: {r}")
+
+
+def phase_levers(ops, tmp, eval_off, train_off):
+    """Phase 15: MMVit4's config levers through the entry points, each part
+    timed (see the module docstring)."""
+    log("  (a) depth_mode: pruned")
+    with timed("(a) the training run"):
+        phase_train_slice(ops, tmp, options={"depth_mode": "pruned"}, per=PRUNED_LAUNCHES)
+    with timed("(a) the B=8 forward"):
+        pruned_forward(ops, eval_off)
+    with timed("(a) card against CPU"):
+        phase_whole_model(options={"depth_mode": "pruned"})
+        phase_train_step(options={"depth_mode": "pruned"})
+        for model in ("MMVit2", "mmformer"):
+            family_pruned_forward(model)
+    log("  (b) fuse_expand_bn: true")
+    with timed("(b) the training run"):
+        phase_train_slice(ops, tmp, options={"fuse_expand_bn": True})
+    with timed("(b) card against CPU, flag off, with pallas_fused_blocks"):
+        fused_bn_checks(ops)
+    log("  (c) decoder_remat: true, decoder_lean: false")
+    with timed("(c)"):
+        remat_check(ops)
+    log("  (d) decoder_chunk: 8")
+    with timed("(d)"):
+        chunk_check(ops)
+    log("  (e) run.profile MMVit4 --memory --batch-size 4 --device cuda")
+    with timed("(e)"):
+        profile_check(train_off)
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2481,6 +2843,10 @@ def main():
                 "MMVit4, B=8, bf16")
             with timed("phase 14"):
                 phase_mat_import(ops, tmp)
+            log("phase 15: MMVit4's config levers, depth_mode pruned, fuse_expand_bn, "
+                "decoder_remat, decoder_chunk, and run.profile")
+            with timed("phase 15"):
+                phase_levers(ops, tmp, eval_off, train_off)
         finally:
             os.chdir(here)
     for counts, fused_counts in ((eval_launches, fused_eval_launches),

@@ -136,10 +136,6 @@ def load_config(path) -> ExperimentConfig:
 
 # field: (is it off its default?, what it asks for)
 _NOT_HONOURED = {
-    "fuse_expand_bn": (lambda v: bool(v), "bn3/down_bn folded into their convs"),
-    "depth_mode": (lambda v: v != "full", "the depth-pruned decoder"),
-    "decoder_chunk": (lambda v: v != 0, "depth-chunked decoder backwards"),
-    "decoder_remat": (lambda v: bool(v), "decoder rematerialization"),
     "mesh_shape": (lambda v: v is not None, "SPMD training over a device mesh"),
 }
 # TPU machinery without effect on what is computed or written

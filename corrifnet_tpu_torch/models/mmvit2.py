@@ -24,9 +24,9 @@ Counterpart of ``corrifnet_tpu/models/mmvit2.py``, NCDHW inside:
 
 No BatchNorm: every norm is a parameter-free InstanceNorm. The JAX package
 builds these models with ``dtype``, ``use_pallas`` and ``depth_mode`` only
-(``corrifnet_tpu/run/main.py:48-67``); ``pallas_fused_blocks`` and
-``decoder_lean`` have no effect on them there, nor here
-(``models/registry.py``).
+(``corrifnet_tpu/run/main.py:48-67``); ``depth_mode='pruned'`` runs the
+depth-pruned decoder (``models/decoder.py``), as there; MMVit4's other
+options have no effect on them there, nor here (``models/registry.py``).
 
 Parameters are f32; ``dtype`` is the compute dtype. Module names are the
 reference's, so ``state_dict()`` is the layout that
@@ -96,7 +96,8 @@ class MMVit2(nn.Module):
     ``set_dropout_rng``; every kernel runs under autograd."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 transformer_dropout: float = 0.1, use_correlation: bool = True):
+                 transformer_dropout: float = 0.1, use_correlation: bool = True,
+                 depth_mode: str = "full"):
         super().__init__()
         self.compute_dtype = dtype
         self.use_correlation = use_correlation
@@ -110,7 +111,7 @@ class MMVit2(nn.Module):
                 setattr(self, f"qkv_{m}", Conv(dim, dim * 3, 1))
         self.multimodal_transformer = Transformer(dim, 1, 8, 512, drop)
         self.multimodal_decode_conv = Conv(dim * 3, BD * 8 * 3, 1)
-        self.decoder_fuse = DecoderFuse(use_reduce=False)
+        self.decoder_fuse = DecoderFuse(use_reduce=False, depth_mode=depth_mode)
 
     def reset_parameters(self, generator: torch.Generator):
         """Initialize every parameter from ``generator``, in module order:
@@ -169,5 +170,6 @@ class MMFormer(MMVit2):
     """mmformer (mmformer.py:349-435): MMVit2 without the correlation stage."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 transformer_dropout: float = 0.1):
-        super().__init__(dtype, transformer_dropout, use_correlation=False)
+                 transformer_dropout: float = 0.1, depth_mode: str = "full"):
+        super().__init__(dtype, transformer_dropout, use_correlation=False,
+                         depth_mode=depth_mode)

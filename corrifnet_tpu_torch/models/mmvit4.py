@@ -23,7 +23,13 @@ autograd (K1b and K2b in the backward).
 
 ``pallas_fused_blocks=True`` runs the 48 encoder bottlenecks through the
 fused convolution kernels K4a-K4d (``models/resnet3d.py``); the parameters
-and the ``state_dict`` are the same either way.
+and the ``state_dict`` are the same either way. So with the JAX model's
+other levers (``corrifnet_tpu/models/mmvit4.py:93-115, 243-246``):
+``fuse_expand_bn`` folds the bottlenecks' expanding BatchNorms into their
+convs (``nn/fusedbn.py``; no effect with ``pallas_fused_blocks``),
+``depth_mode='pruned'`` runs the depth-pruned decoder, ``decoder_remat``
+rematerializes its chain stages and ``decoder_chunk`` depth-chunks its
+level-1 and -2 lean stages (``models/decoder.py``).
 
 Parameters are f32; ``dtype`` is the compute dtype. Module names are the
 reference's, so ``state_dict()`` is the reference layout (dead reference
@@ -64,13 +70,15 @@ class MMVit4(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.float32,
                  transformer_dropout: float = 0.1,
                  pallas_fused_blocks: bool = False,
-                 decoder_lean: "bool | None" = None):
+                 decoder_lean: "bool | None" = None,
+                 depth_mode: str = "full", fuse_expand_bn: bool = False,
+                 decoder_remat: bool = False, decoder_chunk: int = 0):
         super().__init__()
         self.compute_dtype = dtype
         dim = TRANSFORMER_DIM
         drop = transformer_dropout
         for m in MODALITIES:
-            setattr(self, f"{m}_encoder", ResNet3DEncoder(pallas_fused_blocks))
+            setattr(self, f"{m}_encoder", ResNet3DEncoder(pallas_fused_blocks, fuse_expand_bn))
             setattr(self, f"{m}_encode_conv", Conv(BASIC_DIMS * 8, dim, 1))
             setattr(self, f"{m}_pos", nn.Parameter(torch.zeros(1, NUM_TOKENS, dim)))
             setattr(self, f"{m}_transformer", Transformer(dim, 1, 8, 512, drop))
@@ -81,7 +89,9 @@ class MMVit4(nn.Module):
         self.fused6_pos = nn.Parameter(torch.zeros(1, NUM_TOKENS, dim))
         self.multimodal_transformer = Transformer(dim, 1, 8, 512, drop)
         self.multimodal_decode_conv = Conv(dim * 4, BASIC_DIMS * 8 * 3, 1)
-        self.decoder_fuse = DecoderFuse(lean=decoder_lean)
+        self.decoder_fuse = DecoderFuse(lean=decoder_lean, depth_mode=depth_mode,
+                                        remat_convs=decoder_remat,
+                                        c2_chunks=decoder_chunk)
 
     def reset_parameters(self, generator: torch.Generator):
         """Initialize every parameter from ``generator``, in module order:

@@ -40,7 +40,9 @@ __all__ = ["ModelSpec", "available_models", "create_model", "get_spec"]
 
 
 # the model options of create_model and their defaults (no effect when unset)
-_OPTION_DEFAULTS = {"pallas_fused_blocks": False, "decoder_lean": None}
+_OPTION_DEFAULTS = {"pallas_fused_blocks": False, "decoder_lean": None,
+                    "depth_mode": "full", "fuse_expand_bn": False,
+                    "decoder_remat": False, "decoder_chunk": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +55,8 @@ class ModelSpec:
 
 _REGISTRY: Dict[str, ModelSpec] = {
     "MMVit4": ModelSpec("MMVit4", MMVit4, "5d"),
-    "MMVit2": ModelSpec("MMVit2", MMVit2, "5d", options=()),
-    "mmformer": ModelSpec("mmformer", MMFormer, "5d", options=()),
+    "MMVit2": ModelSpec("MMVit2", MMVit2, "5d", options=("depth_mode",)),
+    "mmformer": ModelSpec("mmformer", MMFormer, "5d", options=("depth_mode",)),
     "RFNet": ModelSpec("RFNet", RFNet, "5d", options=()),
     "RobustMseg": ModelSpec("RobustMseg", RobustMseg, "5d", options=()),
     "MultiSenseSeg": ModelSpec("MultiSenseSeg", MultiSenseSeg, "5d", options=()),
@@ -83,18 +85,24 @@ def available_models():
 def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,
                  transformer_dropout: float = 0.1,
                  pallas_fused_blocks: bool = False,
-                 decoder_lean: "bool | None" = None):
+                 decoder_lean: "bool | None" = None,
+                 depth_mode: str = "full", fuse_expand_bn: bool = False,
+                 decoder_remat: bool = False, decoder_chunk: int = 0):
     """Build ``name`` in eval mode with f32 parameters drawn from ``seed``
     (on the CPU, so weights do not depend on the device), compute dtype
     ``dtype``, on ``device``. ``transformer_dropout`` acts in training mode;
     ``pallas_fused_blocks`` runs the encoder bottlenecks through the fused
     convolution kernels (same parameters, same ``state_dict``);
     ``decoder_lean`` chooses the decoder's lean backward (None: at batch <=
-    4, the JAX package's rule). The two options are MMVit4's: MMVit2 and
-    mmformer run their decoder by the batch rule, and no other model takes
-    either."""
+    4, the JAX package's rule); ``depth_mode``, ``fuse_expand_bn``,
+    ``decoder_remat`` and ``decoder_chunk`` as the JAX model's
+    (``models/mmvit4.py``, ``models/decoder.py``). All are MMVit4's
+    options; MMVit2 and mmformer take ``depth_mode`` alone and run their
+    decoder by the batch rule, and no other model takes any."""
     spec = get_spec(name)
-    given = {"pallas_fused_blocks": pallas_fused_blocks, "decoder_lean": decoder_lean}
+    given = {"pallas_fused_blocks": pallas_fused_blocks, "decoder_lean": decoder_lean,
+             "depth_mode": depth_mode, "fuse_expand_bn": fuse_expand_bn,
+             "decoder_remat": decoder_remat, "decoder_chunk": decoder_chunk}
     inert = [f"{k}={v!r}" for k, v in given.items()
              if k not in spec.options and v != _OPTION_DEFAULTS[k]]
     if inert:

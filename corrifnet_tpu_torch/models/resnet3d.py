@@ -10,6 +10,13 @@ The JAX package's ``PackedStage1`` (three modalities packed into channels
 to fill the TPU's 128 lanes) is a layout device with the same math; the
 port runs the three encoders as three modules.
 
+``fuse_expand_bn=True`` folds ``bn3`` into ``conv3``, and ``downsample``'s
+BatchNorm into its conv where it expands the channels 4x or more (layer 1's
+first block), with the statistics taken from the conv's input
+(``nn/fusedbn.py``; ``corrifnet_tpu/models/resnet3d.py:95-130``). With
+``pallas_fused=True`` it has no effect, as in the JAX package, whose
+``_fused`` returns first.
+
 ``pallas_fused=True`` sends every bottleneck through the fused convolution
 kernels (``ops/fusedconv.py``), the counterpart of ``Bottleneck3D._fused``
 (``corrifnet_tpu/models/resnet3d.py:136-243``). Parameters, buffers and
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from corrifnet_tpu_torch.nn import BatchNorm, Conv, max_pool, resize_linear
+from corrifnet_tpu_torch.nn.fusedbn import fused_pointwise_conv_bn
 from corrifnet_tpu_torch.ops import conv3x3_fma_relu_stats, pointwise_conv_stats
 
 __all__ = ["BASIC_DIMS", "Bottleneck3D", "ResNet3DEncoder"]
@@ -39,10 +47,11 @@ class Bottleneck3D(nn.Module):
     """1x1 reduce -> (1,3,3) spatial -> 1x1 expand, residual (mmvit4.py:196-212)."""
 
     def __init__(self, in_channels, width, stride=1, has_downsample=False,
-                 pallas_fused=False):
+                 pallas_fused=False, fuse_expand_bn=False):
         super().__init__()
         self.stride = stride
         self.pallas_fused = pallas_fused
+        self.fuse_expand_bn = fuse_expand_bn
         out = width * EXPANSION
         self.conv1 = Conv(in_channels, width, 1, bias=False)
         self.bn1 = BatchNorm(width)
@@ -63,8 +72,17 @@ class Bottleneck3D(nn.Module):
             return self._fused(x)
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        identity = x if self.downsample is None else self.downsample(x)
+        if self.fuse_expand_bn:
+            y = fused_pointwise_conv_bn(y, self.conv3, self.bn3)
+        else:
+            y = self.bn3(self.conv3(y))
+        if self.downsample is None:
+            identity = x
+        elif self.fuse_expand_bn and self.conv3.weight.shape[0] >= 4 * x.shape[1]:
+            identity = fused_pointwise_conv_bn(x, self.downsample[0], self.downsample[1],
+                                               self.stride)
+        else:
+            identity = self.downsample(x)
         return torch.relu(y + identity)
 
     def _fused(self, x):
@@ -126,7 +144,7 @@ class ResNet3DEncoder(nn.Module):
     """Returns the adapted levels a1..a5 (8/16/32/64/64 channels) and the
     64-channel x6 bottleneck at 8^3 (mmvit4.py:159-194)."""
 
-    def __init__(self, pallas_fused=False):
+    def __init__(self, pallas_fused=False, fuse_expand_bn=False):
         super().__init__()
         bd = BASIC_DIMS
         self.e1_c1 = Conv(1, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), bias=False)
@@ -134,9 +152,10 @@ class ResNet3DEncoder(nn.Module):
         cin = 64
         for li, (blocks, width) in enumerate(LAYERS):
             stride = 1 if li == 0 else 2
-            layer = [Bottleneck3D(cin, width, stride, True, pallas_fused)]
+            layer = [Bottleneck3D(cin, width, stride, True, pallas_fused, fuse_expand_bn)]
             cin = width * EXPANSION
-            layer += [Bottleneck3D(cin, width, pallas_fused=pallas_fused)
+            layer += [Bottleneck3D(cin, width, pallas_fused=pallas_fused,
+                                   fuse_expand_bn=fuse_expand_bn)
                       for _ in range(blocks - 1)]
             setattr(self, f"e{li + 2}", nn.Sequential(*layer))
         level_in = (64, 256, 512, 1024, 2048)

@@ -49,7 +49,10 @@ class Conv(nn.Module):
     1x1 and depthwise 3x3 convs); the weight is ``(out, in / groups,
     *kernel)`` and its fan-in that of one group. ``dilation`` spaces the
     taps, as PyTorch's and the JAX ``Conv``'s do (DeepLabv3_plus's atrous
-    convs)."""
+    convs). ``padding`` is one int for every axis, one per axis, or per axis
+    an int or a ``(before, after)`` pair (the depth-pruned decoder pads
+    depth at the top edge only, ``((1, 0), (1, 1), (1, 1))``); a padding
+    with an uneven pair is applied before the conv."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=True, padding_mode="zeros", dims=3,
@@ -64,8 +67,13 @@ class Conv(nn.Module):
         self.groups = groups
         self.dilation = _tuple(dilation, dims)
         self.stride = _tuple(stride, dims)
-        self.padding = _tuple(padding, dims)
+        self.padding = tuple(p if isinstance(p, int) else tuple(p)
+                             for p in _tuple(padding, dims))
         self.padding_mode = padding_mode
+        # (before, after) per axis; padded before the conv unless the conv
+        # pads (zeros, even on every axis)
+        self._pads = tuple((p, p) if isinstance(p, int) else p for p in self.padding)
+        self._pre_pad = padding_mode == "replicate" or any(lo != hi for lo, hi in self._pads)
         self.kernel_init = kernel_init
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, *_tuple(kernel_size, dims))
@@ -103,7 +111,9 @@ class Conv(nn.Module):
         backward instead of storing them), and the batch size."""
         if depth_fuse is None:
             if self.padding_mode == "replicate":
-                x = replicate_pad(x, [(p, p) for p in self.padding])
+                x = replicate_pad(x, self._pads)
+            elif self._pre_pad:
+                x = F.pad(x, [p for lo_hi in reversed(self._pads) for p in lo_hi])
             return (x,), x.shape[0]
         if (self.weight.shape[2] != 3 or self.padding[0] != 1 or self.stride != (1, 1, 1)
                 or self.groups != 1 or self.dilation != (1, 1, 1)):
@@ -119,7 +129,7 @@ class Conv(nn.Module):
         dt = parts[0].dtype
         w, bias = self.weight.to(dt), self._bias(dt)
         if depth_fuse is None:
-            padding = 0 if self.padding_mode == "replicate" else self.padding
+            padding = 0 if self._pre_pad else self.padding
             conv = F.conv3d if w.dim() == 5 else F.conv2d
             if self.groups == 1 and set(self.dilation) == {1}:
                 return conv(parts[0], w, bias, self.stride, padding)

@@ -29,8 +29,8 @@ one batched product over (block, k, t) that writes the output once,
 channels-last, with the bias as its addend.
 
 The tables are built in float64 from the JAX package's rules (the port's
-own copies of its ``_linear_matrix``, in ``nn/resize.py``, and
-``_nearest_matrix``, below) and cast to the compute dtype where they are
+own copies of its ``_linear_matrix`` and ``_nearest_matrix``, in
+``nn/resize.py``) and cast to the compute dtype where they are
 used, as the JAX module casts them.
 """
 
@@ -43,24 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from corrifnet_tpu_torch.nn.pad import replicate_pad
-from corrifnet_tpu_torch.nn.resize import _linear_matrix
+from corrifnet_tpu_torch.nn.resize import _linear_matrix, _nearest_matrix
 
-__all__ = ["coarse_input", "depth_expand", "expand_conv", "fused_resize_conv",
-           "tap_expand_table"]
-
-
-@functools.lru_cache(maxsize=None)
-def _nearest_matrix(src: int, dst: int) -> np.ndarray:
-    """(dst, src) one-hot nearest matrix, source index
-    ``min(floor(j * (src / dst)), src - 1)`` in float64 (the JAX package's
-    rule). PyTorch's float32 rule gives the same rows wherever src / dst is
-    exact in float32, as for every skip depth the decoders give it: 3 (all of
-    MMVit4's skips, MMVit2's x1), 2 (MMVit2's x2) and 1 (its x3, x4) to
-    16..128."""
-    idx = np.minimum(np.floor(np.arange(dst) * (src / dst)).astype(np.int64), src - 1)
-    w = np.zeros((dst, src), dtype=np.float64)
-    w[np.arange(dst), idx] = 1.0
-    return w
+__all__ = ["coarse_input", "depth_expand", "expand_conv", "expand_rows",
+           "fused_resize_conv", "table_columns", "tap_expand_table", "tap_major"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,13 +69,24 @@ def tap_expand_table(kind: str, src_d: int, dst_d: int,
     return m
 
 
+def table_columns(table):
+    """A (P, 3, S) tap table as the expansion product's (P, 3·S) columns,
+    in (k, t) order."""
+    return table.transpose(0, 2, 1).reshape(table.shape[0], -1)
+
+
+def tap_major(w):
+    """A (CO, CI, 3, kh, kw) 3-D conv weight as the 2-D conv weight (3·CO,
+    CI, kh, kw) with the depth taps on the output channels."""
+    return w.permute(2, 0, 1, 3, 4).reshape(3 * w.shape[0], w.shape[1], *w.shape[3:])
+
+
 @functools.lru_cache(maxsize=None)
 def _expansion(blocks, dst_d, pad_mode, dtype, device):
     """The tables of ``blocks`` ((kind, src_d) each) side by side as the
     (dst_d, 3 * sum src_d) matrix of the expansion product, columns in
     (block, k, t) order, in ``dtype`` on ``device``."""
-    m = [tap_expand_table(kind, src, dst_d, pad_mode).transpose(0, 2, 1).reshape(dst_d, -1)
-         for kind, src in blocks]
+    m = [table_columns(tap_expand_table(kind, src, dst_d, pad_mode)) for kind, src in blocks]
     return torch.from_numpy(np.concatenate(m, axis=1)).to(device=device, dtype=dtype)
 
 
@@ -126,8 +123,7 @@ def expand_conv(images, weights, kinds, batch, dst_d, pad_mode, padding, bias=No
     conv_pad = 0 if pad_mode == "replicate" else (ph, pw)
     convs = []
     for x2, w in zip(images, weights):
-        kcat = w.permute(2, 0, 1, 3, 4).reshape(3 * w.shape[0], w.shape[1], *w.shape[3:])
-        convs.append(F.conv2d(x2, kcat, None, 1, conv_pad))  # (B·S, 3·CO, H, W)
+        convs.append(F.conv2d(x2, tap_major(w), None, 1, conv_pad))  # (B·S, 3·CO, H, W)
     return depth_expand(convs, kinds, batch, dst_d, pad_mode, bias)
 
 
@@ -137,12 +133,23 @@ def depth_expand(convs, kinds, batch, dst_d, pad_mode, bias=None):
     on the coarse side into one (B, sum S, 3, H, W, CO) buffer (one copy),
     then one batched product that writes y (B, CO, dst_d, H, W) once,
     channels-last."""
+    rows = [u.shape[0] // batch for u in convs]
+    m = _expansion(tuple(zip(kinds, rows)), dst_d, pad_mode, convs[0].dtype,
+                   convs[0].device)
+    return expand_rows(convs, m, batch, bias)
+
+
+def expand_rows(convs, m, batch, bias=None):
+    """``depth_expand`` with the expansion given as a matrix: m (P, 3 * sum
+    S) in (block, k, t) column order, as ``_expansion`` lays it out; y (B,
+    CO, P, H, W), channels-last. (The chunked lean stages pass a band of
+    the tables' rows.)"""
     co = convs[0].shape[1] // 3
     h, w = convs[0].shape[2:]
     rows = [u.shape[0] // batch for u in convs]
+    dst_d = m.shape[0]
     u = torch.cat([u.permute(0, 2, 3, 1).reshape(batch, s, h * w, 3, co).transpose(2, 3)
                    for u, s in zip(convs, rows)], dim=1).view(batch, 3 * sum(rows), -1)
-    m = _expansion(tuple(zip(kinds, rows)), dst_d, pad_mode, u.dtype, u.device)
     m = m.expand(batch, -1, -1)
     if bias is None:
         y = torch.bmm(m, u)

@@ -23,6 +23,18 @@ keeps one:
     evaluation; ``torch.utils.checkpoint`` would rerun it).
   * ``lean_head`` closes the chain: the head keeps depth slice 0 only, so
     the fma runs on that slice.
+  * ``depth_chunks`` (the decoder's ``decoder_chunk``; JAX
+    ``_chunked_nearest_conv`` and ``_chunked_pointwise_conv``,
+    ``corrifnet_tpu/nn/leandec.py:113-225``): a skip-concat stage or a 1x1
+    stage that takes a handoff runs its conv and ReLU one depth chunk at a
+    time, each chunk under ``torch.utils.checkpoint``, so the backward's
+    transients are one chunk's. A chunk rebuilds its rows of the run volume
+    from the handoff ``(y, a, b)`` with a one-row halo (replicate-padded at
+    the volume's edges); the skip block's coarse conv is computed once. The
+    stage then ends in ``relu_in_stats`` of its ReLU output (the identity
+    on it, and JAX ``_in_stats_of_act``'s statistics, with the hand-derived
+    backward that saves no f32 copy). Equal to the unchunked stage up to
+    f32 reassociation.
 
 The forward is the standard stage's up to the statistics: K3 computes the
 variance in two passes, ``relu_in_stats`` as E[y^2] - E[y]^2 in f32, as the
@@ -34,10 +46,21 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from corrifnet_tpu_torch.nn.conv import Conv
+from corrifnet_tpu_torch.nn.depthfuse import (
+    coarse_input,
+    expand_rows,
+    table_columns,
+    tap_expand_table,
+    tap_major,
+)
+from corrifnet_tpu_torch.nn.pad import replicate_pad
 from corrifnet_tpu_torch.nn.resize import resize_linear
 
 __all__ = ["LeanGeneralConv3d", "LeanHandoff", "lean_head", "relu_in_stats"]
@@ -102,6 +125,64 @@ def _expand(x, pre_resize):
     return x
 
 
+def _nearest_chunk(start, rows, y, a, b, us, w_run, bias, table):
+    """Depth rows ``start .. start+rows`` of relu(skip-concat conv): the run
+    block's rows rebuilt from the handoff with a one-row halo, convolved as
+    ``expand_conv`` convolves them, and expanded with the skip block's
+    coarse taps ``us`` in one product."""
+    depth, batch = y.shape[2], y.shape[0]
+    lo, hi = max(start - 1, 0), min(start + rows + 1, depth)
+    x = y[:, :, lo:hi] * a + b
+    x = replicate_pad(x, [(int(start == 0), int(start + rows == depth)), (1, 1), (1, 1)])
+    _, c, _, hp, wp = x.shape
+    x2 = x.transpose(1, 2).reshape(batch * (rows + 2), c, hp, wp)
+    z = F.conv2d(x2.contiguous(memory_format=torch.channels_last), w_run)
+    shift = np.zeros((rows, 3, rows + 2))
+    shift[np.arange(rows)[:, None], np.arange(3), np.arange(rows)[:, None] + np.arange(3)] = 1
+    m = np.concatenate([table_columns(table[start:start + rows]), table_columns(shift)], axis=1)
+    m = torch.from_numpy(m).to(device=z.device, dtype=z.dtype)
+    return torch.relu(expand_rows([us, z], m, batch, bias))
+
+
+def _chunked_nearest_conv(conv, skip, h, dst_d, chunks):
+    """relu(conv((skip, h), ("nearest", dst_d))) one depth chunk at a time
+    (JAX ``_chunked_nearest_conv``): skip (B, CS, S, H, W) at its coarse
+    rows, h the run's handoff at ``dst_d`` rows."""
+    if dst_d % chunks:
+        raise ValueError(f"{dst_d} depth rows do not split into {chunks} chunks")
+    rows = dst_d // chunks
+    dt = h.y.dtype
+    w, bias = conv.weight.to(dt), conv._bias(dt)
+    cs = skip.shape[1]
+    images = coarse_input(skip.to(dt), conv.padding, conv.padding_mode)
+    us = F.conv2d(images, tap_major(w[:, :cs]))
+    table = tap_expand_table("nearest", skip.shape[2], dst_d, conv.padding_mode)
+    w_run = tap_major(w[:, cs:])
+    parts = [torch.utils.checkpoint.checkpoint(
+        _nearest_chunk, i * rows, rows, h.y, h.a, h.b, us, w_run, bias, table,
+        use_reentrant=False) for i in range(chunks)]
+    return torch.cat(parts, dim=2)
+
+
+def _pointwise_chunk(start, rows, y, a, b, w, bias):
+    return torch.relu(F.conv3d(y[:, :, start:start + rows] * a + b, w, bias))
+
+
+def _chunked_pointwise_conv(conv, h, chunks):
+    """relu(conv(y * a + b)) of a 1x1 stage one depth chunk at a time (JAX
+    ``_chunked_pointwise_conv``)."""
+    depth = h.y.shape[2]
+    if depth % chunks:
+        raise ValueError(f"{depth} depth rows do not split into {chunks} chunks")
+    rows = depth // chunks
+    dt = h.y.dtype
+    w, bias = conv.weight.to(dt), conv._bias(dt)
+    parts = [torch.utils.checkpoint.checkpoint(
+        _pointwise_chunk, i * rows, rows, h.y, h.a, h.b, w, bias,
+        use_reentrant=False) for i in range(chunks)]
+    return torch.cat(parts, dim=2)
+
+
 class _Rebuilt:
     """Token saved in place of a tensor that ``Conv.prepare`` made."""
 
@@ -114,23 +195,41 @@ class LeanGeneralConv3d(nn.Module):
     ``conv.weight`` and ``conv.bias``), with the lean calling convention:
     takes a plain tensor, a ``LeanHandoff`` or ``(skip, handoff)``, and
     returns a ``LeanHandoff``. ``pre_resize``: the (D, H, W) size of the
-    H/W-only resize before the conv (the fused up2)."""
+    H/W-only resize before the conv (the fused up2). ``depth_chunks`` > 0:
+    a skip-concat call (``(skip, handoff)`` with ``("nearest", D)``) or a
+    1x1 call on a handoff runs depth-chunked (module docstring)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=1, padding_mode="zeros", pre_resize=()):
+                 padding=1, padding_mode="zeros", pre_resize=(), depth_chunks=0):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
                          padding, padding_mode=padding_mode)
         self.pre_resize = tuple(pre_resize)
+        self.depth_chunks = depth_chunks
 
     @classmethod
-    def sharing(cls, stage, pre_resize=()):
+    def sharing(cls, stage, pre_resize=(), depth_chunks=0):
         """The lean twin of the ``GeneralConv3d`` ``stage``, on its conv
         (the same parameter tensors)."""
         lean = cls.__new__(cls)
         nn.Module.__init__(lean)
         lean.conv, lean.pre_resize = stage.conv, tuple(pre_resize)
+        lean.depth_chunks = depth_chunks
         return lean
+
+    def _chunked(self, x, depth_fuse):
+        """The relu output of a depth-chunked call, or None where the call
+        is not one that chunks (JAX ``LeanGeneralConv3d.__call__``)."""
+        if not self.depth_chunks:
+            return None
+        if (depth_fuse is not None and depth_fuse[0] == "nearest" and isinstance(x, tuple)
+                and not isinstance(x, LeanHandoff) and isinstance(x[1], LeanHandoff)):
+            return _chunked_nearest_conv(self.conv, x[0], x[1], depth_fuse[1],
+                                         self.depth_chunks)
+        if (depth_fuse is None and isinstance(x, LeanHandoff)
+                and tuple(self.conv.weight.shape[2:]) == (1, 1, 1)):
+            return _chunked_pointwise_conv(self.conv, x, self.depth_chunks)
+        return None
 
     def _prepare(self, x, depth_fuse):
         if isinstance(x, tuple) and not isinstance(x, LeanHandoff):
@@ -141,6 +240,12 @@ class LeanGeneralConv3d(nn.Module):
         return self.conv.prepare(x, depth_fuse)
 
     def forward(self, x, depth_fuse=None) -> LeanHandoff:
+        y = self._chunked(x, depth_fuse)
+        if y is not None:
+            # y is a ReLU output already: relu_in_stats keeps it as it is and
+            # takes JAX's _in_stats_of_act statistics, saving y and scalars
+            # only (plain autograd through them would save an f32 copy)
+            return LeanHandoff(*relu_in_stats(y))
         prepared = self._prepare(x, depth_fuse)
         if not torch.is_grad_enabled():
             return self._epilogue(self.conv.convolve(prepared, depth_fuse))

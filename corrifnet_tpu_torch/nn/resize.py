@@ -40,6 +40,12 @@ that training repeats its bits on the card (``utils/determinism.py``):
     for the flat indices (the first largest entry, in window order).
     ``F.max_pool2d(return_indices=True)`` would give a tie to one entry and
     scatter its gradient with atomics;
+  * the depth-prefix resizes of the depth-pruned decoder
+    (``resize_linear_depth_prefix``, ``resize_nearest_depth_prefix``)
+    compute only the leading depth rows of a resize: a product with the
+    first rows of the interpolation matrix (or of the one-hot nearest
+    matrix), so their backwards are transposed products too (a row
+    selection by ``index_select`` would add its gradient with a scatter);
   * ``max_unpool`` places each value at its index, the last writer in
     row-major pooled order winning where indices repeat (the JAX package's
     scatter on the CPU), through a reduction of each target to its largest
@@ -60,7 +66,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["adaptive_max_pool", "avg_pool", "max_pool", "max_pool_argmax", "max_unpool",
-           "resize_linear", "resize_nearest"]
+           "resize_linear", "resize_linear_depth_prefix", "resize_nearest",
+           "resize_nearest_depth_prefix"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,6 +143,20 @@ def resize_linear(x, size: Sequence[int], align_corners: bool = True,
 
 
 @functools.lru_cache(maxsize=None)
+def _nearest_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) one-hot nearest matrix, source index
+    ``min(floor(j * (src / dst)), src - 1)`` in float64 (the JAX package's
+    rule). PyTorch's float32 rule gives the same rows wherever src / dst is
+    exact in float32, as for every skip depth the decoders give it: 3 (all of
+    MMVit4's skips, MMVit2's x1), 2 (MMVit2's x2) and 1 (its x3, x4) to
+    16..128."""
+    idx = np.minimum(np.floor(np.arange(dst) * (src / dst)).astype(np.int64), src - 1)
+    w = np.zeros((dst, src), dtype=np.float64)
+    w[np.arange(dst), idx] = 1.0
+    return w
+
+
+@functools.lru_cache(maxsize=None)
 def _nearest_one_hot(src: int, dst: int, dtype, device):
     """(dst, src) matrix with a single 1 per row at the source index of
     PyTorch's nearest resize, ``min(floor(j * (src / dst)), src - 1)`` in
@@ -179,6 +200,45 @@ def resize_nearest(x, size: Sequence[int]):
     if x.dim() == 4:
         return _ResizeNearest.apply(x.unsqueeze(2), (1, *size)).squeeze(2)
     return _ResizeNearest.apply(x, size)
+
+
+def _depth_rows(x, m):
+    """x (B, C, D, H, W) -> (B, C, P, H, W): output row p is
+    ``sum_d m[p, d] x[:, :, d]``, one product (its backward the transposed
+    product)."""
+    return torch.einsum("pd,bcdhw->bcphw", m, x)
+
+
+def resize_linear_depth_prefix(x, src_d_full: int, dst_d_full: int, d_prefix: int,
+                               hw_size, align_corners: bool = True):
+    """The first ``d_prefix`` depth rows of the trilinear resize of a
+    ``src_d_full``-deep volume to ``(dst_d_full, *hw_size)``
+    (``corrifnet_tpu/nn/resize.py:175-196``): the same interpolation weights
+    as the whole resize, only fewer output rows. x is (B, C, D', H, W) where
+    D' may already be a prefix of ``src_d_full``; it must hold every source
+    row the output rows read (``ValueError`` otherwise). The depth product
+    runs in f32, then the H/W resize in f32, and the result is cast back to
+    x's dtype, as the JAX package's."""
+    w = _linear_matrix(src_d_full, dst_d_full, align_corners)[:d_prefix]
+    needed = int(np.nonzero(np.any(w != 0, axis=0))[0].max()) + 1
+    if needed > x.shape[2]:
+        raise ValueError(f"depth prefix {x.shape[2]} too small: need {needed} source slices")
+    xf = x.float()
+    m = torch.from_numpy(np.ascontiguousarray(w[:, :x.shape[2]])).to(
+        device=x.device, dtype=xf.dtype)
+    y = resize_linear(_depth_rows(xf, m), (d_prefix, *hw_size), align_corners)
+    return y.to(x.dtype)
+
+
+def resize_nearest_depth_prefix(x, dst_d_full: int, d_prefix: int, hw_size):
+    """The first ``d_prefix`` depth rows of the nearest resize of x (B, C,
+    D, H, W) to ``(dst_d_full, *hw_size)`` (``corrifnet_tpu/nn/
+    resize.py:199-206``): the depth rows selected by a product with the
+    one-hot rows of the JAX package's rule (exact in any dtype, one 1 per
+    row), then ``resize_nearest`` in H and W."""
+    m = _nearest_matrix(x.shape[2], dst_d_full)[:d_prefix]
+    m = torch.from_numpy(np.ascontiguousarray(m)).to(device=x.device, dtype=x.dtype)
+    return resize_nearest(_depth_rows(x, m), (d_prefix, *hw_size))
 
 
 class _MaxPool(torch.autograd.Function):

@@ -7,8 +7,9 @@ package's backward, which has no Pallas kernel), K4a/K4b
 ``pointwise_conv_stats`` and K4c/K4d ``conv3x3_fma_relu_stats`` with their
 backwards (CUDA C++; the fused bottleneck convolutions, run by
 ``pallas_fused_blocks``). Each
-wrapper runs its plain version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises, and counts its launches in
+wrapper runs its plain version for CPU tensors only (and for meta tensors,
+which carry shapes only: ``run.profile`` counts FLOPs on them); for CUDA
+tensors it launches its kernel or raises, and counts its launches in
 ``<wrapper>.launches``.
 """
 

@@ -53,7 +53,7 @@ import functools
 
 import torch
 
-from corrifnet_tpu_torch.ops.build import load_cuda_library
+from corrifnet_tpu_torch.ops.build import PLAIN_DEVICES, load_cuda_library
 
 __all__ = ["attention_backward_plain", "attention_plain", "fused_attention",
            "fused_attention_bwd", "fused_attention_qkv", "kernel_keep_mask",
@@ -310,7 +310,7 @@ def fused_attention_bwd(q, k, v, out, lse, d_out, scale, rate=0.0, philox=None):
     one launch), or an exception; never the plain version. On the card the
     three are views of one (B, N, 3, H, D) buffer."""
     seed, offset = _philox_words(rate, philox)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         b, h, n, _ = q.shape
         keep = (philox_keep_mask(seed, offset, b * h, n, rate).view(b, h, n, n)
                 if rate > 0.0 else None)
@@ -378,7 +378,7 @@ def fused_attention(q, k, v, scale, rate=0.0, philox=None):
     ``rate`` keyed by ``philox=(seed, offset)``. CPU tensors: the plain
     version with ``philox_keep_mask``. CUDA tensors: kernel K2f, and K2b in
     the backward, or an exception; never the plain version."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         seed, offset = _philox_words(rate, philox)
         keep = None
         if rate > 0.0:

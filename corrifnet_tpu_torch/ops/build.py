@@ -19,7 +19,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_cuda_library", "nvcc_path"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "PLAIN_DEVICES", "load_cuda_library",
+           "nvcc_path"]
+
+# The devices on which a kernel wrapper runs its plain version: the CPU, and
+# the shape-only meta device (``run.profile`` counts FLOPs there).
+PLAIN_DEVICES = ("cpu", "meta")
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "corrifnet_tpu_torch"

@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from corrifnet_tpu_torch.ops.build import PLAIN_DEVICES
+
 __all__ = ["correlation_fusion", "correlation_fusion_backward_plain",
            "correlation_fusion_bwd", "correlation_fusion_plain"]
 
@@ -192,7 +194,7 @@ def correlation_fusion_bwd(q, k, v, g):
     """(dq, dk, dv) of ``correlation_fusion`` for the output gradient ``g``.
     CPU tensors: the plain version. CUDA tensors: kernel K1b, or an
     exception; never the plain version."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return correlation_fusion_backward_plain(q, k, v, g)
     if q.device.type != "cuda":
         raise ValueError(f"no correlation kernel for device {q.device}")
@@ -224,7 +226,7 @@ def correlation_fusion(q, k, v):
     """(3, B, N, C) correlation fusion, differentiable. CPU tensors: the
     plain version (and autograd through it). CUDA tensors: kernel K1f, and
     K1b in the backward, or an exception; never the plain version."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return correlation_fusion_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no correlation kernel for device {q.device}")

@@ -55,7 +55,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from corrifnet_tpu_torch.ops.build import load_cuda_library
+from corrifnet_tpu_torch.ops.build import PLAIN_DEVICES, load_cuda_library
 
 __all__ = [
     "backward_plan",
@@ -402,9 +402,9 @@ def _launch_backward(x, w, a, b, y, dy, ds, dq, taps):
 
 
 def _on_cpu(x):
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in (*PLAIN_DEVICES, "cuda"):
         raise ValueError(f"no fused conv kernel for device {x.device}")
-    return x.device.type == "cpu"
+    return x.device.type in PLAIN_DEVICES
 
 
 def _forward(x, w, a, b, stats, taps):

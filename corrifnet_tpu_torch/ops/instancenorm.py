@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from corrifnet_tpu_torch.ops.build import load_cuda_library
+from corrifnet_tpu_torch.ops.build import PLAIN_DEVICES, load_cuda_library
 
 __all__ = ["Plan", "plan", "relu_instancenorm", "relu_instancenorm_backward_plain",
            "relu_instancenorm_bwd", "relu_instancenorm_plain",
@@ -280,9 +280,9 @@ def _launch_bwd(x, g, mean, rstd):
 
 
 def _on_cpu(x):
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in (*PLAIN_DEVICES, "cuda"):
         raise ValueError(f"no instancenorm kernel for device {x.device}")
-    return x.device.type == "cpu"
+    return x.device.type in PLAIN_DEVICES
 
 
 def relu_instancenorm_bwd(x, g, mean, rstd, eps=1e-5):

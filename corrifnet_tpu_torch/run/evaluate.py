@@ -30,7 +30,13 @@ restored strictly, and prints one line per run,
 forward. A JAX run's orbax checkpoint is refused, naming
 ``scripts/export_jax_checkpoint.py``. Unlike the JAX package's
 ``evaluate_run``, which never reads ``data_dirs``, the data come from the
-config as in a training run.
+config as in a training run. The model is built with the compute dtype,
+``pallas_fused_blocks`` and ``decoder_lean``; the training levers
+``depth_mode``, ``fuse_expand_bn``, ``decoder_remat`` and ``decoder_chunk``
+are not passed, as the JAX package's ``evaluate_run`` builds with
+``create_model(modeltype, dtype)`` alone (``corrifnet_tpu/run/evaluate.py:
+98``): a config with ``depth_mode: pruned`` is evaluated at full depth, and
+one printed line says so.
 
     python -m corrifnet_tpu_torch.run.evaluate --config model0.txt \
         [--weights weights.npz | --run-dir RUN | --manifest runs.txt]
@@ -284,6 +290,11 @@ def write_segplots(model, data, indices, out_dir, device):
                         data.tr_mean_r, data.tr_mean_g, data.tr_mean_b, indx=int(idx))
 
 
+# the model levers the JAX package's evaluation does not pass, at their defaults
+_TRAINING_LEVERS = {"depth_mode": "full", "fuse_expand_bn": False, "decoder_remat": False,
+                    "decoder_chunk": 0}
+
+
 @deterministic()
 def evaluate_run(cfg, state_dict=None, device="cuda", segplot_dir=None):
     """Evaluate ``cfg.modeltype`` over ``cfg``'s test fold on ``device``,
@@ -300,6 +311,12 @@ def evaluate_run(cfg, state_dict=None, device="cuda", segplot_dir=None):
     data = load_dstl(cfg.train_set_size, trind, pack_path=cfg.data_pack,
                      synthetic_seed=cfg.synthetic_seed,
                      data_dirs=cfg.data_dirs)
+    unused = [f"{k}={getattr(cfg, k)!r}" for k, v in _TRAINING_LEVERS.items()
+              if getattr(cfg, k) != v]
+    if unused:
+        print(f"config: {', '.join(unused)} not used by run.evaluate: the model is "
+              "evaluated as built by default (full depth), as the JAX package's "
+              "evaluate_run builds it")
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
                          pallas_fused_blocks=cfg.pallas_fused_blocks,

@@ -31,11 +31,15 @@ segplot PNGs have their own writer). Models: MMVit4, MMVit2, mmformer,
 RFNet, RobustMseg and MultiSenseSeg take the three modalities; UNetV2 (4-D
 input) takes the one ``chindex`` picks and channel 0 of the masks, and its
 runs write no segplot, as in the JAX package. Still to be ported (see
-ROADMAP.md): the rest of the zoo (``models.registry``) and the config fields
-``config.check_supported`` names.
-``pallas_fused_blocks`` is honoured: it runs the encoder bottlenecks through
-the fused convolution kernels; so is ``decoder_lean`` (None: the lean decoder
-backward at batch <= 4, as the JAX package).
+ROADMAP.md): the config field ``config.check_supported`` names
+(``mesh_shape``). The model is built as the JAX package's ``_build_model``
+builds it (``corrifnet_tpu/run/main.py:48-67``): ``pallas_fused_blocks``
+runs the encoder bottlenecks through the fused convolution kernels,
+``decoder_lean`` chooses the lean decoder backward (None: at batch <= 4),
+and ``depth_mode``, ``fuse_expand_bn``, ``decoder_remat`` and
+``decoder_chunk`` are MMVit4's levers (MMVit2 and mmformer take
+``depth_mode``); ``models.create_model`` names on one line an option the
+model does not take.
 
 A run repeats its bits on every device, as the JAX package's does: it runs
 under ``utils.determinism.deterministic()`` (PyTorch's deterministic
@@ -116,7 +120,10 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
     model = create_model(cfg.modeltype, dtype=compute_dtype(cfg), device=device,
                          seed=cfg.seed,
                          pallas_fused_blocks=cfg.pallas_fused_blocks,
-                         decoder_lean=cfg.decoder_lean)
+                         decoder_lean=cfg.decoder_lean, depth_mode=cfg.depth_mode,
+                         fuse_expand_bn=cfg.fuse_expand_bn,
+                         decoder_remat=cfg.decoder_remat,
+                         decoder_chunk=cfg.decoder_chunk)
     if cfg.transfertype == "notr":
         apply_reference_init_scheme(model, cfg.initialization, scheme_generator(cfg.seed))
     elif cfg.transfertype == "yestr" and cfg.transfer_checkpoint:

@@ -426,10 +426,17 @@ def test_create_model_passes_decoder_lean_to_the_decoder():
 @pytest.mark.parametrize("field,value", [("decoder_chunk", 2), ("decoder_remat", True),
                                          ("depth_mode", "pruned")])
 def test_check_supported_still_refuses_the_decoder_levers(field, value):
+    """The decoder's three levers, refused before they were ported, are
+    taken by ``check_supported`` and reach MMVit4's decoder through the
+    registry (built on the meta device)."""
     from corrifnet_tpu_torch.config import ExperimentConfig, check_supported
+    from corrifnet_tpu_torch.run.profile import meta_model
 
-    with pytest.raises(NotImplementedError, match=rf"{field}=.*ROADMAP\.md"):
-        check_supported(ExperimentConfig(**{field: value}), "cuda")
+    check_supported(ExperimentConfig(**{field: value}), "cuda")
+    dec = meta_model("MMVit4", **{field: value}).decoder_fuse
+    got = {"decoder_chunk": dec.c2_chunks, "decoder_remat": dec.remat_convs,
+           "depth_mode": "pruned" if dec.pruned else "full"}[field]
+    assert got == value
 
 
 @pytest.mark.parametrize("entry", ["main", "evaluate"])

@@ -31,6 +31,7 @@ from corrifnet_tpu_torch import ops
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.models.resnet3d import Bottleneck3D
 from corrifnet_tpu_torch.testing import calibrate_batchnorm
+from torch_levers import LEVERS, check_entry_points_take
 from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 # the JAX suite's bounds for the fused block against the standard one
@@ -348,9 +349,16 @@ _RUN_LEVEL = {"extended_checkpoints": True, "transfer_checkpoint": "some/dir"}
 @pytest.mark.parametrize("entry", ["main", "evaluate"])
 @pytest.mark.parametrize("field", sorted(_REFUSED))
 def test_entry_points_refuse_fields_the_port_does_not_honour(field, entry, tmp_path,
-                                                             monkeypatch):
-    """Refused by name before anything is built (no permutation file exists
-    here, so reaching the data would raise another error)."""
+                                                             monkeypatch, capsys):
+    """``mesh_shape`` is refused by name before anything is built (no
+    permutation file exists here, so reaching the data would raise another
+    error). MMVit4's four levers, refused before they were ported, are now
+    taken: ``run.main`` builds the model with the field, ``run.evaluate``
+    without it, naming it on one line (``torch_levers``)."""
+    if field in LEVERS:
+        check_entry_points_take("MMVit4", field, _REFUSED[field], tmp_path, monkeypatch,
+                                capsys, entries=(entry,))
+        return
     from corrifnet_tpu_torch.run import evaluate, main
 
     monkeypatch.chdir(tmp_path)

@@ -23,6 +23,7 @@ import torch
 from corrifnet_tpu.models import torch_import as ti
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.models.jax_import import flatten_variables
+from torch_levers import LEVERS, check_entry_points_take
 from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 MODELS = {"MMVit2": False, "mmformer": True}  # name: the converter's mmformer flag
@@ -174,12 +175,18 @@ _REFUSED = {"fuse_expand_bn": True, "depth_mode": "pruned", "decoder_chunk": 2,
 
 @pytest.mark.parametrize("field", sorted(_REFUSED))
 @pytest.mark.parametrize("name", list(MODELS))
-def test_entry_points_refuse_for_every_model(name, field, tmp_path, monkeypatch):
-    """What the port refuses stays refused with MMVit2 and mmformer: both
-    entry points raise naming the field before anything is built.
+def test_entry_points_refuse_for_every_model(name, field, tmp_path, monkeypatch, capsys):
+    """MMVit4's four levers are taken by both entry points (``torch_levers``;
+    MMVit2 and mmformer take ``depth_mode``, the other three have no effect
+    on them). What the port still refuses stays refused with MMVit2 and
+    mmformer: both entry points raise naming the field before anything is
+    built.
     ``use_pallas=False`` is refused on a CUDA device only, and is asked of
     ``run.evaluate`` alone (``run.main`` names the card before it checks,
     and without a card that raises first)."""
+    if field in LEVERS:
+        check_entry_points_take(name, field, _REFUSED[field], tmp_path, monkeypatch, capsys)
+        return
     from corrifnet_tpu_torch.run import evaluate, main
 
     monkeypatch.chdir(tmp_path)

@@ -136,13 +136,14 @@ _BLOCKED_IMPORT = textwrap.dedent("""
                 "models.multisenseseg", "models.registry", "models.resnet3d",
                 "models.rfnet", "models.robustseg", "models.segformer",
                 "models.unet", "nn", "nn.conv",
-                "nn.depthfuse", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
+                "nn.depthfuse", "nn.fusedbn", "nn.init", "nn.leandec", "nn.norm", "nn.pad",
                 "nn.resize", "nn.transformer", "ops", "ops.attention", "ops.build",
                 "ops.correlation", "ops.fusedconv", "ops.instancenorm", "run",
-                "run.evaluate", "run.import_checkpoint", "run.main", "run.segplot",
-                "testing", "train",
+                "run.evaluate", "run.import_checkpoint", "run.main", "run.profile",
+                "run.segplot", "testing", "train",
                 "train.checkpoint", "train.loop", "train.schedule",
-                "train.state", "utils", "utils.determinism", "utils.logfiles"):
+                "train.state", "utils", "utils.determinism", "utils.logfiles",
+                "utils.profiling"):
         importlib.import_module("corrifnet_tpu_torch." + mod)
     from corrifnet_tpu_torch.data import write_permutation
     from corrifnet_tpu_torch.run.evaluate import main

@@ -25,6 +25,7 @@ import torch
 from corrifnet_tpu.models import torch_import as ti
 from corrifnet_tpu_torch.models import create_model
 from corrifnet_tpu_torch.models.jax_import import flatten_variables
+from torch_levers import LEVERS, check_entry_points_take
 from torch_threads import torch_threads  # noqa: F401 (autouse fixture)
 
 MODEL_ATOL = 5e-5  # ROADMAP Queue 3: the f32 whole-model forward bound
@@ -166,11 +167,17 @@ _REFUSED = {"fuse_expand_bn": True, "depth_mode": "pruned", "decoder_chunk": 2,
 
 
 @pytest.mark.parametrize("field", sorted(_REFUSED))
-def test_entry_points_refuse(field, tmp_path, monkeypatch):
-    """What the port refuses stays refused with MultiSenseSeg: both entry
+def test_entry_points_refuse(field, tmp_path, monkeypatch, capsys):
+    """MMVit4's four levers are taken by both entry points and have no
+    effect on MultiSenseSeg (``torch_levers``). What the port still refuses
+    stays refused with MultiSenseSeg: both entry
     points raise naming the field before anything is built (``use_pallas=
     False`` on a CUDA device only, asked of ``run.evaluate`` alone, as for
     the other models)."""
+    if field in LEVERS:
+        check_entry_points_take("MultiSenseSeg", field, _REFUSED[field], tmp_path,
+                                monkeypatch, capsys)
+        return
     from corrifnet_tpu_torch.run import evaluate, main
 
     monkeypatch.chdir(tmp_path)

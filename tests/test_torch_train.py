@@ -15,7 +15,6 @@ measured reason) and to tight bounds, tensor by tensor, in float64
 
 from __future__ import annotations
 
-import json
 import math
 
 import jax
@@ -495,73 +494,3 @@ def test_train_step_matches_jax(jax_step, batch, padded):
     (bounds and their reasons: ``torch_train_step.check_train_step``); the
     B=4 case with a padded sample is in ``test_torch_train_b4.py``."""
     check_train_step(jax_step, batch, padded, DECODER_LEAN)
-
-
-# ---------------------------------------------------------------- the CLI
-
-
-def test_training_cli_on_cpu(tmp_path, monkeypatch):
-    """The training entry point end to end on the CPU: MMVit4 in f32 over 15
-    synthetic patches, 1 epoch of batch 4 (3 steps with a padded tail, 1
-    validation patch, 3 test patches). The log files and both checkpoints
-    are written, the losses sit in the double-sigmoid band, and validation
-    by restoring the checkpoint equals validation on the live model."""
-    from corrifnet_tpu_torch import data
-    from corrifnet_tpu_torch.models import create_model
-    from corrifnet_tpu_torch.run import main as run_main
-    from corrifnet_tpu_torch.train import Checkpointer, loop
-
-    monkeypatch.chdir(tmp_path)
-    data.write_permutation(15, ".", seed=0)
-    cfg = {"train_set_size": 15, "fno": 2, "fsiz": 5, "n_epochs": 1,
-           "modeltype": "MMVit4", "synthetic_seed": 0, "dtype": "float32"}
-    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    with pytest.raises(FileNotFoundError, match="extended_checkpoints"):
-        run_main.main(["--config", "cfg.json", "--device", "cpu", "--resume", "some_dir"])
-    r = run_main.main(["--config", "cfg.json", "--run-root", ".", "--device", "cpu"])
-
-    run_dir = tmp_path / r["run_dir"]
-    lines = {}
-    for name in ("trainFile", "trainaccFile", "trainepochFile", "valFile",
-                 "valaccFile", "testFile", "testaccFile", "fpsfile", "lrFile"):
-        lines[name] = (run_dir / f"{name}.txt").read_text().splitlines()
-    assert all(len(lines[n]) == 1 for n in lines if n != "lrFile")
-    assert lines["trainepochFile"] == ["0"]
-    assert lines["lrFile"][0] == "Epoch: 0 LR: [0.0001]"
-    assert len(lines["lrFile"]) == 6
-    assert float(lines["trainFile"][0]) == r["history"]["train_loss"][0]
-    assert float(lines["testaccFile"][0]) == r["test_jaccard"]
-    assert r["train_steps"] == 3 and len(r["history"]["step_seconds"]) == 2
-    for loss in (r["history"]["train_loss"][0], r["history"]["val_loss"][0],
-                 r["test_loss"]):
-        assert 0.5 <= loss <= 1.0
-    assert len(list(run_dir.glob("2*_*.txt"))) == 1  # the dated summary
-    assert "Model version:MMVit4" in next(run_dir.glob("2*_*.txt")).read_text()
-    # the first test image's segplot family, and the curves (matplotlib is
-    # installed here)
-    for name in ("segmentation_image", "test_image", "test_image_R", "test_image_G",
-                 "test_image_B", "test_pred_mask", "ground_truth_mask",
-                 "learning_curves", "accuracy_curves"):
-        assert (run_dir / f"{name}.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", name
-
-    ckpt = Checkpointer(run_dir)
-    assert ckpt.exists("iremmodel0") and ckpt.exists("Finaliremmodel0")
-    assert not list(run_dir.glob("*.tmp"))
-    final = ckpt.restore("Finaliremmodel0")
-    epoch = ckpt.restore("iremmodel0")
-    assert sorted(final) == sorted(create_model("MMVit4").state_dict())
-    assert all(torch.equal(final[k], epoch[k]) for k in final)  # one epoch
-
-    # validation by restore == validation on the live model
-    model = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=1)
-    model.load_state_dict(final)
-    tsind, trind, vlind = data.cross_val(15, 2, 5)
-    arrays = data.load_dstl(15, trind, synthetic_seed=0)
-    live = loop.validate(model, arrays.images, arrays.masks, vlind, 4, 224, None,
-                         None, 0, val_from_checkpoint=False)
-    restored = loop.validate(create_model("MMVit4", seed=2), arrays.images,
-                             arrays.masks, vlind, 4, 224, None, ckpt, 0,
-                             val_from_checkpoint=True)
-    assert live == restored
-    np.testing.assert_allclose(live[0], r["history"]["val_loss"][0], rtol=1e-6)
-    np.testing.assert_allclose(live[1], r["history"]["val_jac"][0], rtol=1e-6)
