@@ -357,6 +357,16 @@ ZERO_NOISE = {"RFNet": 1e-5, "MultiSenseSeg": 2e-4, "UNetV2": 2e-4, "DeepLabv3_p
 
 
 K4_PER_FORWARD = {"pointwise_conv_stats": 108, "conv3x3_fma_relu_stats": 39}
+# the K4a and K4c launches that a fused training step's backward adds under
+# each remat_mode (the JAX package's choice of blocks, corrifnet_tpu/models/
+# resnet3d.py:284-285,376 and mmvit4.py:127,151,171): of the 36 tail blocks
+# (2, 3, 5 and 2 in layers 1-4 of each encoder), one rematerialized whole runs
+# conv1 and conv3 (K4a) and conv2 (K4c) again, one whose mid activations are
+# stored conv3 alone. "early": the 15 tails of layers 1-2; "mid1": layer 1's
+# 6 as "mid", the other 30 as "all"
+K4_REMAT = {"none": (0, 0), "all": (72, 36), "early": (30, 15), "mid": (36, 0),
+            "mid1": (66, 30)}
+REMAT_DEFAULT = "all"  # the config's and the model's default, the JAX package's
 
 
 def k4_pointwise_shapes(b):
@@ -1501,12 +1511,16 @@ def read_counts(ops):
     return {n: w.launches for n, w in ops.KERNELS.items()}
 
 
-def k4_counts(forwards, steps, fused):
+def k4_counts(forwards, steps, fused, remat=REMAT_DEFAULT):
     """The K4 launches of ``forwards`` forwards, ``steps`` of them with a
-    backward: none with the flag off."""
+    backward whose encoders rematerialize as ``remat`` says (K4_REMAT):
+    none with the flag off."""
     per = K4_PER_FORWARD if fused else dict.fromkeys(K4_PER_FORWARD, 0)
     want = {name: forwards * n for name, n in per.items()}
     want.update({name + "_bwd": steps * n for name, n in per.items()})
+    if fused:
+        again = dict(zip(K4_PER_FORWARD, K4_REMAT[remat]))
+        want.update({name: want[name] + steps * n for name, n in again.items()})
     return want
 
 
@@ -1624,6 +1638,7 @@ def check_train_launches(launches, steps, fused=False, model="MMVit4", runs=1, p
             "relu_instancenorm_bwd": k3 * steps,
             **k4_counts(runs * (steps + evals), runs * steps, fused)}
     fwd, bwd = runs * (steps + evals), runs * steps
+    again_a, again_c = K4_REMAT[REMAT_DEFAULT] if fused else (0, 0)
     log(f"  per training step: K1f {launches['correlation_fusion'] / fwd:g}, "
         f"K1b {launches['correlation_fusion_bwd'] / bwd:g}, "
         f"K2f {launches['fused_attention'] / fwd:g}, "
@@ -1631,9 +1646,10 @@ def check_train_launches(launches, steps, fused=False, model="MMVit4", runs=1, p
         f"K3 {launches['relu_instancenorm'] / fwd:g}, K3b "
         f"{launches['relu_instancenorm_bwd'] / bwd:g} (forward-only batches launch "
         f"K1f {per['k1']}, K2f {per['k2']}, K3 {per['k3_step']} each); K4a "
-        f"{launches['pointwise_conv_stats'] / fwd:g} and K4c "
-        f"{launches['conv3x3_fma_relu_stats'] / fwd:g} per forward, K4b "
-        f"{launches['pointwise_conv_stats_bwd'] / bwd:g} and K4d "
+        f"{(launches['pointwise_conv_stats'] - again_a * bwd) / fwd:g} and K4c "
+        f"{(launches['conv3x3_fma_relu_stats'] - again_c * bwd) / fwd:g} per forward, "
+        f"{again_a} and {again_c} more in a step's backward (remat_mode "
+        f"{REMAT_DEFAULT!r}), K4b {launches['pointwise_conv_stats_bwd'] / bwd:g} and K4d "
         f"{launches['conv3x3_fma_relu_stats_bwd'] / bwd:g} per step")
     if steps != 8 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
@@ -1838,7 +1854,7 @@ def seeded_image(model="MMVit4"):
     return torch.randn((*lead, 3, 224, 224), generator=torch.Generator().manual_seed(0))
 
 
-def phase_whole_model(fused=False, model="MMVit4", options=None):
+def phase_whole_model(fused=False, model="MMVit4", options=None, build=None):
     """One image through ``model`` in f32 on the card (kernels) and on the
     CPU (plain versions), same weights: max |difference| of the
     probabilities within WHOLE_MODEL_ATOL; for MMVit2 and mmformer within
@@ -1846,15 +1862,17 @@ def phase_whole_model(fused=False, model="MMVit4", options=None):
     moves under a 1e-6 change of the input (MMVit2's correlation softmaxes
     saturate at random initialization and amplify f32 rounding), and for
     the zoo models. The output is (1, 3, 1, 224, 224), or (1, 1, 224, 224)
-    for a 4-D model. ``options``: model options (MMVit4's levers). Returns
-    the card's output and its model."""
+    for a 4-D model. ``options``: model options (MMVit4's levers);
+    ``build``: the f32 CPU model (one ``create_model`` does not build).
+    Returns the card's output and its model."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm
 
     options = options or {}
     x = seeded_image(model)
-    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
-                       **{k: v for k, v in options.items() if k != "fuse_expand_bn"})
+    cpu = build() if build else create_model(
+        model, dtype=torch.float32, device="cpu", seed=0,
+        **{k: v for k, v in options.items() if k != "fuse_expand_bn"})
     # O(1) activations, as trained statistics give (see calibrate_batchnorm;
     # MMVit2 and mmformer have no BatchNorm)
     if model in CALIBRATED:
@@ -1958,7 +1976,7 @@ def gradient_agreement(got, want):
     return (diff / norm) ** 0.5, statistics.median(v for v, _ in l2), max(l2)
 
 
-def phase_train_step(decoder_lean=None, model="MMVit4", options=None):
+def phase_train_step(decoder_lean=None, model="MMVit4", options=None, build=None):
     """One f32 training step of ``model`` at B=1 without dropout, BatchNorm
     (MMVit4's) on batch statistics: the loss and every gradient tensor on the
     card (kernels, forward and backward) against the CPU (plain versions),
@@ -1985,7 +2003,8 @@ def phase_train_step(decoder_lean=None, model="MMVit4", options=None):
     0.49 against a bound near 0.12. The kernels' own backward checks
     (phase 3) are the tight ones. ``options``: model options (MMVit4's
     levers); with them MMVit4 too falls back on the float64 step for a
-    tensor outside the witness's bound."""
+    tensor outside the witness's bound. ``build``: the f32 CPU model (one
+    ``create_model`` does not build)."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.testing import calibrate_batchnorm, zero_gradients
 
@@ -1993,8 +2012,9 @@ def phase_train_step(decoder_lean=None, model="MMVit4", options=None):
     gen = torch.Generator().manual_seed(1)
     masks = (torch.rand((*x.shape[:-3], 1, 224, 224), generator=gen) > 0.5).float()
     valid = torch.ones(1)
-    cpu = create_model(model, dtype=torch.float32, device="cpu", seed=0,
-                       transformer_dropout=0.0, decoder_lean=decoder_lean, **(options or {}))
+    cpu = build() if build else create_model(
+        model, dtype=torch.float32, device="cpu", seed=0, transformer_dropout=0.0,
+        decoder_lean=decoder_lean, **(options or {}))
     if model == "MMVit4":
         calibrate_batchnorm(cpu, x)
     gpu = copy.deepcopy(cpu).to("cuda")
@@ -2564,6 +2584,41 @@ def family_pruned_forward(model):
         raise AssertionError(f"{model} pruned GPU vs CPU {diff} > {bound}")
 
 
+def traced_call(fn):
+    """(device ms, kernels) of one call of ``fn``, already run once, from one
+    ``torch.profiler`` trace of the card's activity alone: a step of 10^4
+    kernels is too long to trace until two traces agree, as
+    ``profiled_device_ms`` does (a trace can lose a few kernels)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def train_step(model, x, masks, valid):
+    """One training step of ``model`` (forward, the loss, backward), its
+    gradients cleared first; returns the loss."""
+    from corrifnet_tpu_torch.train import masked_loss_and_jaccard
+
+    model.zero_grad(set_to_none=True)
+    loss, _, _ = masked_loss_and_jaccard(model(x).float(), masks, valid)
+    loss.backward()
+    return loss
+
+
+def step_inputs(b, model="MMVit4", seed=3):
+    """Seeded images, masks and validity of a B=``b`` batch on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    five = input_kind(model) == "5d"
+    x = torch.randn((b, 3, 3, 224, 224) if five else (b, 3, 224, 224), generator=gen)
+    masks = torch.rand((b, 3, 1, 224, 224) if five else (b, 1, 224, 224), generator=gen)
+    return x.to("cuda"), (masks > 0.5).float().to("cuda"), torch.ones(b, device="cuda")
+
+
 def lever_step(ops, options, dtype=torch.bfloat16, dropout=RATE, scale=1.0):
     """One B=4 training step of MMVit4 (seed 0's weights) built with
     ``options`` on the card under ``deterministic()``, dropout keyed by seed
@@ -2574,14 +2629,11 @@ def lever_step(ops, options, dtype=torch.bfloat16, dropout=RATE, scale=1.0):
     versions (``float64_plain``)."""
     from corrifnet_tpu_torch.models import create_model
     from corrifnet_tpu_torch.nn import DropoutRng
-    from corrifnet_tpu_torch.train import masked_loss_and_jaccard
     from corrifnet_tpu_torch.utils.determinism import deterministic
 
     f64 = dtype == torch.float64
-    gen = torch.Generator().manual_seed(3)
-    x = (torch.randn((TRAIN_B, 3, 3, 224, 224), generator=gen) * scale).to("cuda")
-    masks = (torch.rand((TRAIN_B, 3, 1, 224, 224), generator=gen) > 0.5).float().to("cuda")
-    valid = torch.ones(TRAIN_B, device="cuda")
+    x, masks, valid = step_inputs(TRAIN_B)
+    x = x * scale
     model = create_model("MMVit4", dtype=dtype, device="cuda", seed=0,
                          transformer_dropout=dropout, **options)
     if f64:
@@ -2592,9 +2644,7 @@ def lever_step(ops, options, dtype=torch.bfloat16, dropout=RATE, scale=1.0):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(ops)
-        out = model(x).float()
-        loss, _, _ = masked_loss_and_jaccard(out, masks, valid)
-        loss.backward()
+        loss = train_step(model, x, masks, valid)
         launches = read_counts(ops)
         peak = torch.cuda.max_memory_allocated()
     grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
@@ -2781,6 +2831,250 @@ def phase_levers(ops, tmp, eval_off, train_off):
     torch.cuda.empty_cache()
 
 
+# extras blocks on the card against the CPU, f32, of each output's largest entry
+EXTRAS_RTOL = 1e-5
+INFLATED_RTOL = 1e-4  # the inflated encoder's six levels, as a fused block's
+
+
+def remat_modes(ops):
+    """(a) MMVit4 at full width, B=4 bf16 training steps (dropout 0.1, the
+    same masks each step) under every ``remat_mode``, with
+    ``pallas_fused_blocks`` off and on, each from the same weights and
+    running statistics under ``deterministic()``: the loss, every gradient
+    and every running statistic after the step equal ``"none"``'s bit for
+    bit; with the flag, K4a 108 and K4c 39 a forward plus K4_REMAT[mode] in
+    the backward, K4b 108 and K4d 39; without it no K4. Per mode one line:
+    the step's device ms and kernels a step (profiler, 2 steps), the
+    port's launches, the peak memory of the compared step."""
+    from corrifnet_tpu_torch.models import create_model
+    from corrifnet_tpu_torch.nn import DropoutRng
+    from corrifnet_tpu_torch.utils.determinism import deterministic
+
+    x, masks, valid = step_inputs(TRAIN_B)
+    for fused in (False, True):
+        model = create_model("MMVit4", dtype=torch.bfloat16, device="cuda", seed=0,
+                             pallas_fused_blocks=fused).train()
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        base = None
+        for mode in K4_REMAT:  # "none" first: the others are held to it
+            model.set_remat_mode(mode).load_state_dict(init)
+            with deterministic():
+                model.set_dropout_rng(DropoutRng(0, "cuda"))
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(ops)
+                loss = train_step(model, x, masks, valid)
+                launches = read_counts(ops)
+                peak = torch.cuda.max_memory_allocated()
+                got = (loss.detach().cpu(),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()
+                        if p.grad is not None},
+                       {n: b.cpu() for n, b in model.named_buffers()})
+                ms, kernels = traced_call(lambda: train_step(model, x, masks, valid))
+            want = k4_counts(1, 1, fused, mode)
+            same = None
+            if base is None:
+                base = got
+            else:
+                same = (torch.equal(got[0], base[0])
+                        and all(torch.equal(got[1][n], base[1][n]) for n in base[1])
+                        and all(torch.equal(got[2][n], base[2][n]) for n in base[2]))
+            log(f"  pallas_fused_blocks {fused}, remat_mode {mode!r}: loss "
+                f"{got[0].item():.6f}; device {ms:.3f} ms a step (one traced step), "
+                f"{kernels} kernels; K4a {launches['pointwise_conv_stats']}, K4c "
+                f"{launches['conv3x3_fma_relu_stats']}, K4b "
+                f"{launches['pointwise_conv_stats_bwd']}, K4d "
+                f"{launches['conv3x3_fma_relu_stats_bwd']}; K1-K3 "
+                f"{ {k: v for k, v in launches.items() if k not in K4_KERNELS} }; peak "
+                f"memory allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)"
+                + ("" if same is None else f"; loss, {len(got[1])} gradients and "
+                   f"{len(got[2])} buffers equal to 'none' bit for bit: {same}"))
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"remat_mode {mode} K4 launches {launches}, "
+                                     f"expected {want}")
+            if same is False:
+                raise AssertionError(f"remat_mode {mode} changed the step's bits")
+        del model, init, base
+        torch.cuda.empty_cache()
+
+
+def mss_options_model(dtype=torch.float32):
+    """MultiSenseSeg with ``use_faster`` and ``aux`` on the CPU in eval
+    mode, seed 0's f32 parameters, compute dtype ``dtype`` (as
+    ``create_model`` builds a model)."""
+    from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
+
+    return MultiSenseSeg(dtype=dtype, use_faster=True, aux=True).reset_parameters(
+        torch.Generator().manual_seed(0)).eval()
+
+
+def mss_options(ops):
+    """(b) MultiSenseSeg with ``use_faster`` (the CNN backbone) and ``aux``
+    at 224x224: the B=1 f32 forward (its aux map too, through
+    ``capture_aux``) and one training step on the card against the CPU, as
+    phase 13 (c) and (d) hold the model; then a B=4 bf16 step and a B=8
+    bf16 forward on the card: device ms and kernels (``traced_call``),
+    peak memory, and the port's kernel counters, which must read 0."""
+    from corrifnet_tpu_torch.nn import DropoutRng
+
+    _, gpu = phase_whole_model(model="MultiSenseSeg", build=mss_options_model)
+    cpu = mss_options_model()
+    x = seeded_image("MultiSenseSeg")
+    with torch.no_grad(), cpu.capture_aux() as want, gpu.capture_aux() as got:
+        cpu(x)
+        gpu(x.to("cuda"))
+    err = rel_max(got["aux_out"].cpu(), want["aux_out"])
+    log(f"  aux map {tuple(got['aux_out'].shape)}, card against CPU: max |difference| / "
+        f"max |CPU| {err:.3e} (bound {EXTRAS_RTOL * 10:g})")
+    if got["aux_out"].shape != (1, 1, 14, 14) or not err <= EXTRAS_RTOL * 10:
+        raise AssertionError(f"MultiSenseSeg aux map card against CPU: {err}")
+    del gpu, cpu
+    phase_train_step(model="MultiSenseSeg", build=mss_options_model)
+
+    model = mss_options_model(torch.bfloat16).to("cuda")
+    for label, b, train in (("B=4 bf16 step", TRAIN_B, True),
+                            ("B=8 bf16 forward", EVAL_B, False)):
+        x, masks, valid = step_inputs(b, "MultiSenseSeg")
+        model.train(train).set_dropout_rng(DropoutRng(0, "cuda"))
+
+        def call():
+            if train:
+                return train_step(model, x, masks, valid)
+            with torch.no_grad():
+                return model(x)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        out = call()
+        launches = read_counts(ops)
+        peak = torch.cuda.max_memory_allocated()
+        ms, kernels = traced_call(call)
+        log(f"  {label}: device {ms:.3f} ms (one traced call), {kernels} kernels; peak memory allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB); the "
+            f"port's kernel counters {sum(launches.values())}")
+        if any(launches.values()) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"MultiSenseSeg options {label}: launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def extras_blocks():
+    """(c) Every block of ``models/extras.py`` at the CPU tests' shapes, f32,
+    seeded weights and (for the BatchNorm blocks) seeded running
+    statistics: its output on the card against the CPU's, in eval mode and,
+    for the BatchNorm blocks, in train mode (with the running statistics
+    after it), within EXTRAS_RTOL of each output's largest entry."""
+    from corrifnet_tpu_torch.models import extras as px
+    from corrifnet_tpu_torch.nn import BatchNorm
+
+    blocks = {
+        "BasicBlock2d": (lambda: px.BasicBlock2d(16, 32, 2), ((2, 16, 8, 8),)),
+        "Bottleneck2d": (lambda: px.Bottleneck2d(16, 16), ((2, 16, 8, 8),)),
+        "SegmentHead": (lambda: px.SegmentHead(32, 16, 2, 4), ((1, 32, 8, 8),)),
+        "DAPPM": (lambda: px.DAPPM(64, 24, 64), ((1, 64, 32, 32),)),
+        "PAPPM": (lambda: px.PAPPM(32, 16, 40), ((1, 32, 64, 64),)),
+        "PagFM": (lambda: px.PagFM(8, 4, with_channel=True), ((1, 8, 16, 16), (1, 8, 8, 8))),
+        "Bag": (lambda: px.Bag(16, 16), ((1, 16, 8, 8),) * 3),
+        "CrossAttention": (lambda: px.CrossAttention(32, 4, True), ((2, 10, 32),)),
+        "Block": (lambda: px.Block(32, 4, 2.0), ((2, 10, 32),)),
+        "CrossAttentionBlock": (lambda: px.CrossAttentionBlock(32, 4), ((2, 10, 32),)),
+        "MultiScaleBlock": (lambda: px.MultiScaleBlock((32, 48), (1, 1, 2), (4, 6),
+                                                       (2.0, 2.0, 2.0)),
+                            ((2, 17, 32), (2, 25, 48))),
+    }
+    worst = {}
+    for i, (name, (ctor, shapes)) in enumerate(blocks.items()):
+        gen = torch.Generator().manual_seed(i)
+        cpu = ctor().reset_parameters(gen)
+        norms = [m for m in cpu.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.5)
+            m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) * 1.5 + 0.5)
+        xs = [torch.randn(sh, generator=gen) for sh in shapes]
+        for train in (False, True) if norms else (False,):
+            gpu = copy.deepcopy(cpu).to("cuda").train(train)
+            ref = copy.deepcopy(cpu).train(train)
+            with torch.no_grad():
+                args = (tuple(xs),) if name == "MultiScaleBlock" else xs
+                want = ref(*args)
+                got = gpu(*(tuple(t.to("cuda") for t in a) if isinstance(a, tuple)
+                            else a.to("cuda") for a in args))
+            want = want if isinstance(want, list) else [want]
+            got = got if isinstance(got, list) else [got]
+            errs = [rel_max(g.cpu(), w) for g, w in zip(got, want)]
+            errs += [rel_max(b.cpu(), r) for b, r in zip(gpu.buffers(), ref.buffers())]
+            worst[f"{name} {'train' if train else 'eval'}"] = max(errs)
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"{name}: output not finite")
+    log(f"  {len(worst)} block runs, card against CPU, max |difference| / max |CPU| per "
+        f"run (bound {EXTRAS_RTOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if not all(v <= EXTRAS_RTOL for v in worst.values()):
+        raise AssertionError(f"extras blocks card against CPU: {worst}")
+
+
+def inflated_encoder():
+    """(d) A ResNet50 ``state_dict`` (seeded, ResNet50's names and shapes,
+    He-scale weights) inflated by ``models/inflate.py`` into a full-width
+    ``ResNet3DEncoder``: its eval-mode f32 forward of one 224x224 volume on
+    the card against the CPU, each of the six levels within INFLATED_RTOL
+    of its largest entry."""
+    from corrifnet_tpu_torch.models.inflate import inflate_resnet50, merge_params
+    from corrifnet_tpu_torch.models.resnet3d import LAYERS, ResNet3DEncoder
+
+    rng = np.random.default_rng(0)
+
+    def conv(o, i, k):
+        return rng.normal(0, (1.0 / (i * k * k)) ** 0.5, (o, i, k, k)).astype(np.float32)
+
+    sd, cin = {"conv1.weight": conv(64, 3, 7)}, 64
+    for li, (blocks, width) in enumerate(LAYERS, start=1):
+        for bi in range(blocks):
+            c = cin if bi == 0 else width * 4
+            sd[f"layer{li}.{bi}.conv1.weight"] = conv(width, c, 1)
+            sd[f"layer{li}.{bi}.conv2.weight"] = conv(width, width, 3)
+            sd[f"layer{li}.{bi}.conv3.weight"] = conv(width * 4, width, 1)
+        sd[f"layer{li}.0.downsample.0.weight"] = conv(width * 4, cin, 1)
+        cin = width * 4
+    cpu = ResNet3DEncoder()
+    gen = torch.Generator().manual_seed(0)
+    for module in cpu.modules():
+        if module is not cpu and hasattr(module, "reset_parameters"):
+            module.reset_parameters(gen)
+    merge_params(cpu, inflate_resnet50(sd)).eval()
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn((1, 1, 3, 224, 224), generator=gen)
+    with torch.no_grad():
+        want, got = cpu(x), gpu(x.to("cuda"))
+    errs = [rel_max(g.cpu(), w) for g, w in zip(got, want)]
+    log(f"  inflated encoder, B=1 224x224 f32 eval: {len(sd)} ResNet50 convs inflated; "
+        f"the six levels card against CPU, max |difference| / max |CPU| "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (bound {INFLATED_RTOL})")
+    if not (len(errs) == 6 and all(e <= INFLATED_RTOL for e in errs)
+            and all(torch.isfinite(g).all() for g in got)):
+        raise AssertionError(f"inflated encoder card against CPU: {errs}")
+
+
+def phase_modules(ops):
+    """Phase 16: remat modes, MultiSenseSeg's options, the extras blocks
+    and an inflated encoder (see the module docstring), each part timed."""
+    log("  (a) remat_mode: MMVit4 B=4 bf16 steps, pallas_fused_blocks off and on")
+    with timed("(a)"):
+        remat_modes(ops)
+    log("  (b) MultiSenseSeg use_faster + aux")
+    with timed("(b)"):
+        mss_options(ops)
+    log("  (c) the extras blocks")
+    with timed("(c)"):
+        extras_blocks()
+    log("  (d) an inflated ResNet50 encoder")
+    with timed("(d)"):
+        inflated_encoder()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2890,6 +3184,10 @@ def main():
         "of its forward and backward (bf16, B=4)")
     with timed("phase 10"):
         phase_decoder()
+    log("phase 16: remat_mode (MMVit4 steps, bit for bit), MultiSenseSeg use_faster + "
+        "aux, the extras blocks and an inflated encoder, card against CPU")
+    with timed("phase 16"):
+        phase_modules(ops)
     log(f"chip_smoke took {time.perf_counter() - started:.1f} s")
 
     kernels = []

@@ -138,9 +138,9 @@ def load_config(path) -> ExperimentConfig:
 _NOT_HONOURED = {
     "mesh_shape": (lambda v: v is not None, "SPMD training over a device mesh"),
 }
-# TPU machinery without effect on what is computed or written
-_NO_EFFECT = {"chain_steps": 1, "auto_layout": False, "scan_unroll": 1,
-              "remat_mode": "all"}
+# TPU machinery without effect on what is computed or written (remat_mode,
+# which changes no bit either, is honoured: run.main gives it to MMVit4)
+_NO_EFFECT = {"chain_steps": 1, "auto_layout": False, "scan_unroll": 1}
 
 
 def check_supported(cfg: ExperimentConfig, device) -> None:

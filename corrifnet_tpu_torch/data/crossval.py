@@ -11,8 +11,11 @@ N=5985, fno=1, fsiz=5).
 Semantics preserved:
   * ``fno`` is 1-based (``fno = fno - 1`` at F6_CROSSVAL.py:7).
   * The permutation is read from ``randInd{N}.txt`` — here resolved from the
-    package's ``data/splits`` directory first, then the CWD (the reference
-    reads from CWD only).
+    caller's ``search_dirs``, then the package's ``data/splits`` directory,
+    then the CWD (the reference reads from CWD only). ``data/splits`` holds
+    ``randInd5985.txt``, the JAX package's committed permutation byte for
+    byte, so the default ``train_set_size`` gives the paper's folds from any
+    working directory, in both packages.
   * Test fold = positions ``[fno*N/fsiz, (fno+1)*N/fsiz)``.
   * ``trvlind = setdiff1d(ind, tsind)`` — since ``ind`` is a permutation of
     ``range(N)`` this yields the *sorted* complement of the test positions.

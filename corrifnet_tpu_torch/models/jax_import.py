@@ -25,7 +25,11 @@ invert ``rfnet_variables_from_state_dict``,
 ``deeplab_variables_from_state_dict``,
 ``elanet_variables_from_state_dict``,
 ``fassdnet_variables_from_state_dict`` and
-``enet_variables_from_state_dict``.
+``enet_variables_from_state_dict``. ``multisenseseg_*`` also reads the
+trees of MultiSenseSeg's ``use_faster`` and ``aux`` options, which the
+reference converter does not; ``extras_state_dict_from_variables`` converts
+any block of ``corrifnet_tpu.models.extras`` to its port
+(``models/extras.py``), one way only.
 
 Layouts (JAX -> PyTorch):
   * conv kernels (KD, KH, KW, I, O) -> (O, I, KD, KH, KW), and 2-D ones
@@ -60,6 +64,7 @@ __all__ = [
     "elanet_state_dict_from_variables",
     "enet_named_gradients",
     "enet_state_dict_from_variables",
+    "extras_state_dict_from_variables",
     "fassdnet_named_gradients",
     "fassdnet_state_dict_from_variables",
     "flatten_variables",
@@ -446,7 +451,11 @@ def multisenseseg_state_dict_from_variables(variables, depths=(2, 2, 8, 2)
     ``build_neck``, ``build_decode_head``). ``depths``: the Swin stages'
     block counts the tree was built with. The AMM offset table and the
     window attention's relative position index are static in both packages
-    and in neither tree."""
+    and in neither tree. A tree of the ``use_faster`` model (the CNN
+    backbone: ``backbone/layer{i}_block{j}/{c1,c2,short}``) and of ``aux``
+    (``aux_conv``, ``aux_head``) converts under the JAX names, which the
+    port's modules keep (the reference converter reads neither option);
+    ``depths`` is then not read for the backbone."""
     params, stats = variables["params"], variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
     head = "build_MSEs_AMM"
@@ -472,6 +481,13 @@ def multisenseseg_state_dict_from_variables(variables, depths=(2, 2, 8, 2)
     _ln(sd, f"{key}.norm.1", amm["norm"])
 
     bb, bb_stats = params["backbone"], _child(stats, "backbone")
+    if "layer1_block0" in bb:  # use_faster: the CNN backbone, JAX's names
+        for name, block in bb.items():
+            for part in ("c1", "c2", "short"):
+                if part in block:
+                    _cba(sd, f"build_pipeline.{name}.{part}", block[part],
+                         _child(_child(bb_stats, name), part))
+        depths = ()
     for li, depth in enumerate(depths):
         for i in range(depth):
             name = f"stage{li}_block{i}"
@@ -484,12 +500,16 @@ def multisenseseg_state_dict_from_variables(variables, depths=(2, 2, 8, 2)
             _put(sd, f"build_pipeline.layers.{li}.downsample.reduction", merge["reduction"],
                  _linear_weight)
 
+    if "aux_conv" in params:  # aux: JAX's names
+        _cba(sd, "aux_conv", params["aux_conv"], _child(stats, "aux_conv"))
+        _put(sd, "aux_head", params["aux_head"], _conv_weight)
+
     ppm, ppm_stats = params["ppm"], _child(stats, "ppm")
     for i in range(4):
         _put(sd, f"build_neck.ppm_head.pool_projs.{i}.1", ppm[f"pool_proj{i}"], _conv_weight)
     _cba(sd, "build_neck.ppm_head.bottom", ppm["bottom"], _child(ppm_stats, "bottom"))
     fpn, fpn_stats = params["fpn"], _child(stats, "fpn")
-    for i in range(len(depths) - 1):
+    for i in range(sum(k.startswith("conv_") for k in fpn)):
         _cba(sd, f"build_neck.fpn_neck.conv_.{i}", fpn[f"conv_{i}"],
              _child(fpn_stats, f"conv_{i}"))
         _cba(sd, f"build_neck.fpn_neck.fpn_conv.{i}", fpn[f"fpn_conv{i}"],
@@ -871,6 +891,34 @@ def enet_named_gradients(grads) -> Dict[str, torch.Tensor]:
     gradient}, as ``mmvit4_named_gradients``; a bottleneck's one PReLU
     gradient under each of its names."""
     return enet_state_dict_from_variables({"params": grads})
+
+
+def extras_state_dict_from_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX variables of any block of ``corrifnet_tpu.models.extras`` -> the
+    state_dict of its port in ``corrifnet_tpu_torch.models.extras``, whose
+    submodules carry the JAX names: a module with a ``kernel`` is a conv
+    (4 axes) or a Linear layer (2 axes), with its ``bias`` if any; one with
+    a ``scale`` is a BatchNorm where ``batch_stats`` has it, else a
+    LayerNorm. Nested modules (a block's ``attn``, MultiScaleBlock's fusion
+    blocks) nest the same way under ``.``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(params, stats, key):
+        if "kernel" in params:
+            k = np.asarray(params["kernel"])
+            _put(sd, key, params, _conv_weight if k.ndim == 4 else _linear_weight)
+        elif "scale" in params:
+            if stats is not None and "mean" in stats:
+                _bn(sd, key, params, stats)
+            else:
+                _ln(sd, key, params)
+        else:
+            for name, sub in params.items():
+                walk(sub, _child(stats, name) if stats and name in stats else None,
+                     f"{key}.{name}" if key else name)
+
+    walk(variables["params"], variables.get("batch_stats"), "")
+    return sd
 
 
 def flatten_variables(tree, prefix="") -> Dict[str, np.ndarray]:

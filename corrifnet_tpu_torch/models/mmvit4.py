@@ -29,7 +29,11 @@ other levers (``corrifnet_tpu/models/mmvit4.py:93-115, 243-246``):
 convs (``nn/fusedbn.py``; no effect with ``pallas_fused_blocks``),
 ``depth_mode='pruned'`` runs the depth-pruned decoder, ``decoder_remat``
 rematerializes its chain stages and ``decoder_chunk`` depth-chunks its
-level-1 and -2 lean stages (``models/decoder.py``).
+level-1 and -2 lean stages (``models/decoder.py``). ``remat_mode`` (JAX's
+default ``"all"``; ``"none"``, ``"early"``, ``"mid"``, ``"mid1"``)
+rematerializes the encoders' tail blocks in the backward of a training
+step, as the JAX model's packed stage 1 and encoders do
+(``models/resnet3d.py``'s ``tail_remat``); it changes no bit of the step.
 
 Parameters are f32; ``dtype`` is the compute dtype. Module names are the
 reference's, so ``state_dict()`` is the reference layout (dead reference
@@ -72,13 +76,15 @@ class MMVit4(nn.Module):
                  pallas_fused_blocks: bool = False,
                  decoder_lean: "bool | None" = None,
                  depth_mode: str = "full", fuse_expand_bn: bool = False,
-                 decoder_remat: bool = False, decoder_chunk: int = 0):
+                 decoder_remat: bool = False, decoder_chunk: int = 0,
+                 remat_mode: str = "all"):
         super().__init__()
         self.compute_dtype = dtype
         dim = TRANSFORMER_DIM
         drop = transformer_dropout
         for m in MODALITIES:
-            setattr(self, f"{m}_encoder", ResNet3DEncoder(pallas_fused_blocks, fuse_expand_bn))
+            setattr(self, f"{m}_encoder", ResNet3DEncoder(pallas_fused_blocks, fuse_expand_bn,
+                                                          remat_mode))
             setattr(self, f"{m}_encode_conv", Conv(BASIC_DIMS * 8, dim, 1))
             setattr(self, f"{m}_pos", nn.Parameter(torch.zeros(1, NUM_TOKENS, dim)))
             setattr(self, f"{m}_transformer", Transformer(dim, 1, 8, 512, drop))
@@ -104,6 +110,12 @@ class MMVit4(nn.Module):
             for m in MODALITIES:
                 getattr(self, f"{m}_pos").zero_()
             self.fused6_pos.zero_()
+        return self
+
+    def set_remat_mode(self, mode: str):
+        """The encoders' ``remat_mode`` (``ResNet3DEncoder.set_remat_mode``)."""
+        for m in MODALITIES:
+            getattr(self, f"{m}_encoder").set_remat_mode(mode)
         return self
 
     def set_dropout_rng(self, rng: DropoutRng):

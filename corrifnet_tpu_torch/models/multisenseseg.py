@@ -39,14 +39,25 @@ AMM's two sites at 0.1, and a per-sample DropPath at ``linspace(0, 0.1,
 its two calls. Every mask comes from the ``DropoutRng`` given to
 ``set_dropout_rng``, in the JAX module's call order.
 
-The JAX package builds MultiSenseSeg with ``dtype`` alone and runs none of
-its Pallas kernels on it. Not ported: ``use_faster`` (the CNN backbone) and
-``aux`` (the auxiliary head), which neither entry point reaches (ROADMAP.md
-Queue 1).
+The JAX module's two options, which neither entry point of either package
+reaches (the JAX package builds MultiSenseSeg with ``dtype`` alone and runs
+none of its Pallas kernels on it):
+
+  * ``use_faster``: the residual CNN backbone (``CNNBackbone``, blocks 3, 4,
+    6, 3 at widths 64, 128, 256, 512) in place of the Swin one, with
+    ``embed_dim`` forced to 64 in AMM, PPM and the FPN neck
+    (MultiSenseSeg.py:1185, 1231);
+  * ``aux``: the auxiliary FCN head over the penultimate level (``aux_conv``,
+    3x3 conv-BN-ReLU to 256, and ``aux_head``, 1x1 to the classes). Its map
+    does not change ``forward``'s return: the JAX module sows it as the
+    intermediate ``aux_out``, and the port's ``capture_aux()`` hands it out
+    through a forward hook on ``aux_head``. Its parameters take no gradient
+    from the model's loss, as in the JAX module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Tuple
@@ -66,13 +77,14 @@ from corrifnet_tpu_torch.nn import (
     resize_linear,
 )
 
-__all__ = ["MultiSenseSeg"]
+__all__ = ["CNNBackbone", "CNNBlock", "MultiSenseSeg"]
 
 DROP = 0.1  # every dropout site's rate, and DropPath's largest
 # the configuration the JAX package builds (its module's defaults)
 N_BRANCH = 3  # modalities
 HEAD_OUT = 32  # each MSE's channels
 EMBED_DIM = 96  # the Swin backbone's first stage
+FASTER_DIM = 64  # embed_dim under use_faster (the CNN backbone's first stage)
 NUM_HEADS = (3, 6, 12, 24)
 WINDOW = 8
 GROUP_DIM = 8  # channels per group of the even blocks' CNNMlp
@@ -210,14 +222,15 @@ def _amm_relative_bias(c: int) -> np.ndarray:
 class AMM(_Stochastic):
     """Cross-modality channel-attention fusion (MultiSenseSeg.py:957-1030)
     of the three MSEs' 96 channels: patches of 4 (``patch_size``), q and k
-    pooled by 8 (``offset_scale``), 4 heads. Returns (fused (B, 96, H/4,
-    W/4), the input)."""
+    pooled by 8 (``offset_scale``), 4 heads. Returns (fused (B, out_chans,
+    H/4, W/4), the input); ``out_chans`` is the backbone's width, 96 (the
+    Swin backbone's ``embed_dim``) or 64 (``use_faster``)."""
 
     offset_scale, patch_size, n_heads = 8, 4, 4
 
-    def __init__(self):
+    def __init__(self, out_chans=HEAD_OUT * N_BRANCH):
         super().__init__()
-        c = out_chans = HEAD_OUT * N_BRANCH
+        c = HEAD_OUT * N_BRANCH
         p, n_branch, n_heads = self.patch_size, N_BRANCH, self.n_heads
         self.short_cut_conv = nn.Sequential(_conv(c, out_chans, p, p),
                                             nn.Sequential(nn.Identity(), LayerNorm(out_chans)))
@@ -498,6 +511,54 @@ class SwinBackbone(_Stochastic):
         return outs
 
 
+class CNNBlock(nn.Module):
+    """CNN_Block (MultiSenseSeg.py:845-867): 3x3 conv-BN-ReLU, 3x3 conv-BN,
+    a 1x1 conv-BN projection shortcut where the shape changes, ReLU after
+    the residual add. Convs bias-free."""
+
+    def __init__(self, cin, planes, stride=1):
+        super().__init__()
+        self.c1 = _ConvBNAct(cin, planes, 3, stride, 1, bias=False)
+        self.c2 = _ConvBNAct(planes, planes, 3, 1, 1, bias=False, act="none")
+        self.short = None
+        if stride != 1 or cin != planes:
+            self.short = _ConvBNAct(cin, planes, 1, stride, 0, bias=False, act="none")
+
+    def forward(self, x):
+        y = self.c2(self.c1(x))
+        return torch.relu(y + (x if self.short is None else self.short(x)))
+
+
+class CNNBackbone(nn.Module):
+    """CNN_backbone (MultiSenseSeg.py:870-892), the ``use_faster`` backbone:
+    four stages of (3, 4, 6, 3) ``CNNBlock``s at widths c, 2c, 4c, 8c and
+    strides 1, 2, 2, 2 (stage 1 keeps AMM's resolution); each stage's
+    output is a level. Blocks are named as the JAX module's,
+    ``layer{stage}_block{i}``."""
+
+    STAGES = ((3, 1, 1), (4, 2, 2), (6, 4, 2), (3, 8, 2))  # blocks, width x, stride
+
+    def __init__(self, chans=64):
+        super().__init__()
+        self.names, cin = [], chans
+        for li, (blocks, mult, stride) in enumerate(self.STAGES):
+            stage = []
+            for bi in range(blocks):
+                name = f"layer{li + 1}_block{bi}"
+                setattr(self, name, CNNBlock(cin, chans * mult, stride if bi == 0 else 1))
+                stage.append(name)
+                cin = chans * mult
+            self.names.append(stage)
+
+    def forward(self, x):
+        outs = []
+        for stage in self.names:
+            for name in stage:
+                x = getattr(self, name)(x)
+            outs.append(x)
+        return outs
+
+
 class PPM(nn.Module):
     """Pyramid pooling over the deepest level: adaptive max pools to 1, 2,
     3 and 6, each a bias-free 1x1 conv and ReLU, resized back with aligned
@@ -525,12 +586,13 @@ class PPM(nn.Module):
 class FPNNeck(nn.Module):
     """The FPN over the reversed levels (deepest first, the deepest already
     through PPM): each level's lateral 1x1 plus a 3x3 of the level above
-    up-sampled x2, all resized to the finest and fused by ``out``."""
+    up-sampled x2, all resized to the finest and fused by ``out``. Level i
+    (finest first) has ``embed_dim * 2^i`` channels."""
 
-    def __init__(self, depth):
+    def __init__(self, depth, embed_dim=EMBED_DIM):
         super().__init__()
         self.conv_ = nn.ModuleList(
-            _ConvBNAct(EMBED_DIM * 2 ** (depth - 2 - i), DECODER, 1, bias=False)
+            _ConvBNAct(embed_dim * 2 ** (depth - 2 - i), DECODER, 1, bias=False)
             for i in range(depth - 1))
         self.fpn_conv = nn.ModuleList(
             _ConvBNAct(DECODER, DECODER, 3, 1, 1, bias=False) for _ in range(depth - 1))
@@ -616,21 +678,37 @@ class MultiSenseSeg(nn.Module):
     """Input (B, 3 modalities, 3 bands, H, W), H and W multiples of 32 with
     (H/8 - 2)^2 a multiple of 4 (AMM's heads); output sigmoid probabilities
     (B, 3, 1, H, W) in f32. ``depths`` is the Swin stages' block counts,
-    the JAX module's field. ``transformer_dropout`` has no effect: the
+    the JAX module's field; ``use_faster`` and ``aux`` are its options (see
+    the module docstring). ``transformer_dropout`` has no effect: the
     dropout rates are the JAX module's fixed ones."""
 
     def __init__(self, dtype: torch.dtype = torch.float32, transformer_dropout: float = 0.1,
-                 depths: Tuple[int, ...] = (2, 2, 8, 2)):
+                 depths: Tuple[int, ...] = (2, 2, 8, 2), use_faster: bool = False,
+                 aux: bool = False):
         super().__init__()
         del transformer_dropout  # MultiSenseSeg's dropout rates are fixed
         self.compute_dtype = dtype
+        # use_faster forces embed_dim 64 (MultiSenseSeg.py:1185)
+        ed = FASTER_DIM if use_faster else EMBED_DIM
         ang_table = list(range(0, 136, 135 // N_BRANCH))
         mses = [MSE(math.cos(ang_table[i] * math.pi / 180)) for i in range(N_BRANCH)]
         smooth = _ConvBNAct(HEAD_OUT * N_BRANCH, HEAD_OUT, 3, 1, 1, bias=False)
-        self.build_MSEs_AMM = _MSEsAMM(mses, AMM(), smooth)
-        self.build_pipeline = SwinBackbone(depths)
-        self.build_neck = _Neck(PPM(EMBED_DIM * 2 ** (len(depths) - 1)), FPNNeck(len(depths)))
+        self.build_MSEs_AMM = _MSEsAMM(mses, AMM(ed), smooth)
+        if use_faster:
+            self.build_pipeline = CNNBackbone(ed)
+            depth = len(CNNBackbone.STAGES)
+        else:
+            self.build_pipeline = SwinBackbone(depths)
+            depth = len(depths)
+        self.build_neck = _Neck(PPM(ed * 2 ** (depth - 1)), FPNNeck(depth, ed))
         self.build_decode_head = DecodeGate()
+        self.aux_conv = self.aux_head = None
+        if aux:
+            # the auxiliary FCN head over the penultimate level
+            # (MultiSenseSeg.py:1251-1256): 3x3 conv-BN-ReLU to 256, 1x1 conv
+            self.aux_conv = _ConvBNAct(ed * 2 ** (depth - 2), DECODER // 2, 3, 1, 1,
+                                       bias=False)
+            self.aux_head = _conv(DECODER // 2, 1)
 
     def reset_parameters(self, generator: torch.Generator):
         """Initialize every parameter from ``generator``, in module order:
@@ -641,6 +719,23 @@ class MultiSenseSeg(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
         return self
+
+    @contextlib.contextmanager
+    def capture_aux(self):
+        """Inside the block, each forward of a model built with ``aux`` puts
+        its auxiliary map, (B, 1, H/16, W/16) in the compute dtype (with its
+        graph in training), under ``"aux_out"`` of the dict this yields:
+        what ``mutable=["intermediates"]`` reads from the JAX module's
+        ``sow``. ``forward``'s return is the same with ``aux`` on or off."""
+        if self.aux_head is None:
+            raise ValueError("capture_aux needs a MultiSenseSeg built with aux=True")
+        out = {}
+        hook = self.aux_head.register_forward_hook(
+            lambda module, args, result: out.__setitem__("aux_out", result))
+        try:
+            yield out
+        finally:
+            hook.remove()
 
     def set_dropout_rng(self, rng):
         """Give every dropout site and DropPath the randomness of its masks."""
@@ -656,6 +751,10 @@ class MultiSenseSeg(nn.Module):
         amm_out, short_cut = head.fuse_proj(cat)
         de_x = head.smooth(short_cut)
         feats = self.build_pipeline(amm_out)
+        if self.aux_head is not None:
+            # the aux map: aux_head's output, read with a forward hook
+            # (``capture_aux``), as JAX sows it (``intermediates/aux_out``)
+            self.aux_head(self.aux_conv(feats[-2]))
         rev = feats[::-1]
         rev[0] = self.build_neck.ppm_head(rev[0])
         neck = self.build_neck.fpn_neck(rev)

@@ -42,7 +42,7 @@ __all__ = ["ModelSpec", "available_models", "create_model", "get_spec"]
 # the model options of create_model and their defaults (no effect when unset)
 _OPTION_DEFAULTS = {"pallas_fused_blocks": False, "decoder_lean": None,
                     "depth_mode": "full", "fuse_expand_bn": False,
-                    "decoder_remat": False, "decoder_chunk": 0}
+                    "decoder_remat": False, "decoder_chunk": 0, "remat_mode": "all"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +87,8 @@ def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,
                  pallas_fused_blocks: bool = False,
                  decoder_lean: "bool | None" = None,
                  depth_mode: str = "full", fuse_expand_bn: bool = False,
-                 decoder_remat: bool = False, decoder_chunk: int = 0):
+                 decoder_remat: bool = False, decoder_chunk: int = 0,
+                 remat_mode: str = "all"):
     """Build ``name`` in eval mode with f32 parameters drawn from ``seed``
     (on the CPU, so weights do not depend on the device), compute dtype
     ``dtype``, on ``device``. ``transformer_dropout`` acts in training mode;
@@ -95,14 +96,17 @@ def create_model(name: str, dtype=torch.float32, device="cpu", seed: int = 0,
     convolution kernels (same parameters, same ``state_dict``);
     ``decoder_lean`` chooses the decoder's lean backward (None: at batch <=
     4, the JAX package's rule); ``depth_mode``, ``fuse_expand_bn``,
-    ``decoder_remat`` and ``decoder_chunk`` as the JAX model's
-    (``models/mmvit4.py``, ``models/decoder.py``). All are MMVit4's
+    ``decoder_remat``, ``decoder_chunk`` and ``remat_mode`` (the encoders'
+    tail blocks rematerialized in training, JAX's default ``"all"``) as the
+    JAX model's (``models/mmvit4.py``, ``models/decoder.py``,
+    ``models/resnet3d.py``). All are MMVit4's
     options; MMVit2 and mmformer take ``depth_mode`` alone and run their
     decoder by the batch rule, and no other model takes any."""
     spec = get_spec(name)
     given = {"pallas_fused_blocks": pallas_fused_blocks, "decoder_lean": decoder_lean,
              "depth_mode": depth_mode, "fuse_expand_bn": fuse_expand_bn,
-             "decoder_remat": decoder_remat, "decoder_chunk": decoder_chunk}
+             "decoder_remat": decoder_remat, "decoder_chunk": decoder_chunk,
+             "remat_mode": remat_mode}
     inert = [f"{k}={v!r}" for k, v in given.items()
              if k not in spec.options and v != _OPTION_DEFAULTS[k]]
     if inert:

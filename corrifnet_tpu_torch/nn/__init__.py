@@ -9,7 +9,7 @@ from corrifnet_tpu_torch.nn.conv import (
     GeneralConv3d,
     PReLU,
 )
-from corrifnet_tpu_torch.nn.norm import BatchNorm, InstanceNorm, LayerNorm
+from corrifnet_tpu_torch.nn.norm import BatchNorm, BatchStatsTape, InstanceNorm, LayerNorm
 from corrifnet_tpu_torch.nn.resize import (
     adaptive_max_pool,
     avg_pool,
@@ -23,6 +23,7 @@ from corrifnet_tpu_torch.nn.transformer import DropoutRng, Transformer
 
 __all__ = [
     "BatchNorm",
+    "BatchStatsTape",
     "Conv",
     "ConvTranspose",
     "Dense",

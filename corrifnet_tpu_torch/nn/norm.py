@@ -11,11 +11,16 @@ State-dict names follow the reference modules: ``weight``, ``bias``,
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "InstanceNorm", "LayerNorm", "bn_fold",
+__all__ = ["BatchNorm", "BatchStatsTape", "InstanceNorm", "LayerNorm", "bn_fold",
            "bn_update_running"]
+
+_TAPE = threading.local()
 
 
 def _apply(x, a, b):
@@ -37,6 +42,49 @@ def bn_update_running(running_mean, running_var, mean, var, n, momentum):
     with torch.no_grad():
         running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
         running_var.mul_(1 - momentum).add_(var * (n / max(n - 1, 1)), alpha=momentum)
+
+
+class BatchStatsTape:
+    """The batch statistics of the BatchNorms of one rematerialized region,
+    the counterpart of the JAX package's ``bn_stats`` remat policy
+    (``corrifnet_tpu/models/resnet3d.py:46-48,286-291``).
+
+    A region's function runs inside ``active()`` each time it runs: the
+    first forward records the mean and variance each training-mode
+    ``BatchNorm.fold`` takes, in call order, and updates the running
+    statistics; every later run (the recompute in the backward) folds the
+    recorded statistics in that order and leaves the running statistics
+    alone. So a step updates them once, and the recompute normalizes with
+    the first forward's statistics. The recompute still takes the same
+    reductions (they keep its saved tensors in the order autograd expects),
+    but its folds read the recorded values, with the ``requires_grad`` of
+    the ones they stand for."""
+
+    def __init__(self):
+        self.saved = []
+        self.replay = False
+        self.at = 0
+
+    @contextlib.contextmanager
+    def active(self):
+        before = getattr(_TAPE, "tape", None)
+        _TAPE.tape, self.at = self, 0
+        try:
+            yield self
+        finally:
+            _TAPE.tape = before
+            self.replay = True
+
+    def take(self, mean, var):
+        """The statistics a fold uses: recorded on the first run, replayed
+        after it."""
+        if not self.replay:
+            self.saved.append((mean.detach(), var.detach()))
+            return mean, var
+        m, v = self.saved[self.at]
+        self.at += 1
+        return (m.detach().requires_grad_(mean.requires_grad),
+                v.detach().requires_grad_(var.requires_grad))
 
 
 class BatchNorm(nn.Module):
@@ -70,10 +118,16 @@ class BatchNorm(nn.Module):
         (``corrifnet_tpu/nn/fusedbn.py:83-108``). Train: ``mean`` and the
         biased ``var`` of a batch of ``n`` values per channel update the
         running statistics and are folded. Eval: the running statistics are
-        folded and the arguments are not read."""
+        folded and the arguments are not read. Inside a ``BatchStatsTape``'s
+        region the training-mode statistics are recorded, then replayed."""
         if self.training:
-            bn_update_running(self.running_mean, self.running_var, mean, var, n,
-                              self.momentum)
+            tape = getattr(_TAPE, "tape", None)
+            replay = tape is not None and tape.replay
+            if tape is not None:
+                mean, var = tape.take(mean, var)
+            if not replay:
+                bn_update_running(self.running_mean, self.running_var, mean, var, n,
+                                  self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         return bn_fold(self.weight, self.bias, mean, var, self.eps)

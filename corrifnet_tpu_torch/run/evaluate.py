@@ -32,8 +32,8 @@ forward. A JAX run's orbax checkpoint is refused, naming
 ``evaluate_run``, which never reads ``data_dirs``, the data come from the
 config as in a training run. The model is built with the compute dtype,
 ``pallas_fused_blocks`` and ``decoder_lean``; the training levers
-``depth_mode``, ``fuse_expand_bn``, ``decoder_remat`` and ``decoder_chunk``
-are not passed, as the JAX package's ``evaluate_run`` builds with
+``depth_mode``, ``fuse_expand_bn``, ``decoder_remat``, ``decoder_chunk``
+and ``remat_mode`` (which acts in training alone) are not passed, as the JAX package's ``evaluate_run`` builds with
 ``create_model(modeltype, dtype)`` alone (``corrifnet_tpu/run/evaluate.py:
 98``): a config with ``depth_mode: pruned`` is evaluated at full depth, and
 one printed line says so.
@@ -292,7 +292,7 @@ def write_segplots(model, data, indices, out_dir, device):
 
 # the model levers the JAX package's evaluation does not pass, at their defaults
 _TRAINING_LEVERS = {"depth_mode": "full", "fuse_expand_bn": False, "decoder_remat": False,
-                    "decoder_chunk": 0}
+                    "decoder_chunk": 0, "remat_mode": "all"}
 
 
 @deterministic()

@@ -36,10 +36,11 @@ ROADMAP.md): the config field ``config.check_supported`` names
 builds it (``corrifnet_tpu/run/main.py:48-67``): ``pallas_fused_blocks``
 runs the encoder bottlenecks through the fused convolution kernels,
 ``decoder_lean`` chooses the lean decoder backward (None: at batch <= 4),
-and ``depth_mode``, ``fuse_expand_bn``, ``decoder_remat`` and
-``decoder_chunk`` are MMVit4's levers (MMVit2 and mmformer take
-``depth_mode``); ``models.create_model`` names on one line an option the
-model does not take.
+and ``depth_mode``, ``fuse_expand_bn``, ``decoder_remat``,
+``decoder_chunk`` and ``remat_mode`` (the encoders' tail blocks
+rematerialized in the backward; JAX's default ``"all"``) are MMVit4's
+levers (MMVit2 and mmformer take ``depth_mode``); ``models.create_model``
+names on one line an option the model does not take.
 
 A run repeats its bits on every device, as the JAX package's does: it runs
 under ``utils.determinism.deterministic()`` (PyTorch's deterministic
@@ -123,7 +124,8 @@ def run_experiment(cfg: ExperimentConfig, run_root=".", index: int = 0,
                          decoder_lean=cfg.decoder_lean, depth_mode=cfg.depth_mode,
                          fuse_expand_bn=cfg.fuse_expand_bn,
                          decoder_remat=cfg.decoder_remat,
-                         decoder_chunk=cfg.decoder_chunk)
+                         decoder_chunk=cfg.decoder_chunk,
+                         remat_mode=cfg.remat_mode)
     if cfg.transfertype == "notr":
         apply_reference_init_scheme(model, cfg.initialization, scheme_generator(cfg.seed))
     elif cfg.transfertype == "yestr" and cfg.transfer_checkpoint:

@@ -41,9 +41,11 @@ def zero_gradients(model: nn.Module, batch: int = 1):
 
     and in MultiSenseSeg:
 
-      * the LayerNorm biases of the stages whose output reaches a BatchNorm
-        through a 1x1 conv alone (the FPN's laterals: every stage but the
-        last);
+      * with the Swin backbone, the LayerNorm biases of the stages whose
+        output reaches a BatchNorm through a 1x1 conv alone (the FPN's
+        laterals: every stage but the last); the ``use_faster`` CNN
+        backbone's convs are bias-free and its stages end in a ReLU, so it
+        adds none;
       * ``smooth``'s BatchNorm bias: its ReLU'd output reaches the model
         only through MaxPool(4) and a 1x1 conv before a BatchNorm, so where
         each window holds a positive entry the bias shifts a channel by a
@@ -61,15 +63,16 @@ def zero_gradients(model: nn.Module, batch: int = 1):
     is not listed: it depends on the weights.)"""
     from corrifnet_tpu_torch.models.deeplabv3p import ASPP_RATES, DeepLabV3Plus
     from corrifnet_tpu_torch.models.elanet import ELANet
-    from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg
+    from corrifnet_tpu_torch.models.multisenseseg import MultiSenseSeg, SwinBackbone
     from corrifnet_tpu_torch.nn.conv import Conv
 
     names = []
     if isinstance(model, ELANet):
         names += [f"decode.{seq}.1.bias" for seq in ("Xd1", "Xd2_1")]
-    if isinstance(model, MultiSenseSeg):
+    if isinstance(model, MultiSenseSeg) and isinstance(model.build_pipeline, SwinBackbone):
         names += [f"build_pipeline.norm{i}.bias"
                   for i in range(len(model.build_pipeline.depths) - 1)]
+    if isinstance(model, MultiSenseSeg):
         names.append("build_MSEs_AMM.smooth.1.bias")
         if batch == 1:
             names += ["build_decode_head.chan_attn.attn.1.weight",

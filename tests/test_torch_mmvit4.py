@@ -131,7 +131,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     for mod in ("config", "data", "data.crossval", "data.dataset", "data.dstl",
                 "metrics", "metrics.jaccard", "metrics.losses", "models",
                 "models.decoder", "models.deeplabv3p", "models.elanet", "models.enet",
-                "models.fassdnet", "models.jax_import",
+                "models.extras", "models.fassdnet", "models.inflate", "models.jax_import",
                 "models.mmformer", "models.mmvit2", "models.mmvit4",
                 "models.multisenseseg", "models.registry", "models.resnet3d",
                 "models.rfnet", "models.robustseg", "models.segformer",

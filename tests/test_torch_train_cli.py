@@ -35,8 +35,11 @@ def test_training_cli_on_cpu(tmp_path, monkeypatch):
 
     monkeypatch.chdir(tmp_path)
     data.write_permutation(15, ".", seed=0)
+    # remat_mode changes no bit (tests/test_torch_remat.py); "none" spares
+    # the CPU the default's recompute of the encoders' tail blocks
     cfg = {"train_set_size": 15, "fno": 2, "fsiz": 5, "n_epochs": 1,
-           "modeltype": "MMVit4", "synthetic_seed": 0, "dtype": "float32"}
+           "modeltype": "MMVit4", "synthetic_seed": 0, "dtype": "float32",
+           "remat_mode": "none"}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     with pytest.raises(FileNotFoundError, match="extended_checkpoints"):
         run_main.main(["--config", "cfg.json", "--device", "cpu", "--resume", "some_dir"])

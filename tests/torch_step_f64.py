@@ -122,8 +122,10 @@ def release_memory():
 
 def port_model(batch):
     """MMVit4 of the port with calibrated BatchNorm statistics, f32 values."""
+    # remat_mode changes no bit (tests/test_torch_remat.py); "none" spares
+    # the CPU the default's recompute of the encoders' tail blocks
     model = create_model("MMVit4", dtype=torch.float64, device="cpu", seed=0,
-                         transformer_dropout=0.0, decoder_lean=None)
+                         transformer_dropout=0.0, decoder_lean=None, remat_mode="none")
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for name, p in model.named_parameters():

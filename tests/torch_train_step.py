@@ -104,8 +104,11 @@ def check_train_step(jax_step, batch, padded, decoder_lean):
     from corrifnet_tpu_torch.train import init_state, make_train_step
 
     x, masks, valid = _step_inputs(batch, padded)
+    # remat_mode changes no bit (tests/test_torch_remat.py); "none" spares
+    # the CPU the default's recompute of the encoders' tail blocks
     model = create_model("MMVit4", dtype=torch.float32, device="cpu", seed=0,
-                         transformer_dropout=0.0, decoder_lean=decoder_lean)
+                         transformer_dropout=0.0, decoder_lean=decoder_lean,
+                         remat_mode="none")
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for name, p in model.named_parameters():

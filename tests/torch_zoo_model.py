@@ -1,8 +1,10 @@
 """A 4-D zoo model of the port against the JAX package, on the CPU in f32.
 
 Shared by ``tests/test_torch_elanet.py``, ``tests/test_torch_fassdnet.py``
-and ``tests/test_torch_enet.py``. A ``Zoo`` names the model, its JAX
-module and the converters both ways. The JAX side always gets the port's
+and ``tests/test_torch_enet.py``, and for its step by
+``tests/test_torch_multisenseseg_options.py`` (a 5-D model built with
+options: ``Zoo.build``, ``input_kind``, ``channels_last``). A ``Zoo`` names
+the model, its JAX module and the converters both ways. The JAX side always gets the port's
 weights through ``corrifnet_tpu.models.torch_import``, never an eager init;
 its abstract shapes come from ``jax.eval_shape``.
 
@@ -77,10 +79,16 @@ class Zoo:
     to_variables: Callable  # port state_dict -> JAX variables (torch_import)
     to_state_dict: Callable  # JAX variables -> port state_dict (jax_import)
     calibrate: bool = True  # the whole-model check on calibrated BatchNorms
+    build: Callable = None  # seed -> the port's model (create_model's by default)
+    input_kind: str = "4d"  # '5d': (B, 3 modalities, 3 bands, H, W) inputs
+    channels_last: bool = True  # CallOrderMasks' layout (see torch_zoo_step)
 
     def shapes(self):
         return jax.eval_shape(lambda: self.jax_model(F32).init(
             jax.random.PRNGKey(0), jnp.zeros((1, 3, 64, 64), F32)))
+
+    def model(self, seed):
+        return self.build(seed) if self.build else create_model(self.name, seed=seed)
 
     def gradients(self, grads):
         return self.to_state_dict({"params": grads})
@@ -94,10 +102,11 @@ def nchw(a):
     return np.moveaxis(np.asarray(a), -1, 1)
 
 
-def inputs(seed, b=1, hw=64):
+def inputs(seed, b=1, hw=64, kind="4d"):
     rng = np.random.default_rng(seed)
-    x = rng.normal(0, 1, (b, 3, hw, hw)).astype(np.float32)
-    masks = (rng.random((b, 1, hw, hw)) > 0.7).astype(np.float32)
+    lead = (b, 3, 3) if kind == "5d" else (b, 3)
+    x = rng.normal(0, 1, (*lead, hw, hw)).astype(np.float32)
+    masks = (rng.random((*lead[:-1], 1, hw, hw)) > 0.7).astype(np.float32)
     return x, masks, np.ones(b, np.float32)
 
 
@@ -121,7 +130,7 @@ def check_whole_model(zoo, hw, seed=0):
     return err
 
 
-def port_step(model, masks, valid, seed, branch=None):
+def port_step(model, masks, valid, seed, branch=None, channels_last=True):
     """``step(x)``: the port's (loss, {name: gradient}) of one training-mode
     step, the dropout masks from ``CallOrderMasks(seed)``, with PyTorch's
     own CPU convolutions: oneDNN's backward of ELANet's convs is 0.5% of a
@@ -130,7 +139,7 @@ def port_step(model, masks, valid, seed, branch=None):
     is set, and a float64 step replays them."""
 
     def step(xx):
-        model.set_dropout_rng(CallOrderMasks(seed, channels_last=True))
+        model.set_dropout_rng(CallOrderMasks(seed, channels_last=channels_last))
         model.train()
         model.zero_grad(set_to_none=True)
         with contextlib.ExitStack() as stack:
@@ -157,7 +166,7 @@ def jax_step(zoo, model, x, masks, valid, seed, monkeypatch):
 
     variables = jax.tree.map(lambda a: np.asarray(a, np.float64),
                              zoo.to_variables(model.state_dict()))
-    table = CallOrderMasks(seed, channels_last=True)
+    table = CallOrderMasks(seed, channels_last=zoo.channels_last)
     with jax.enable_x64(True), monkeypatch.context() as patch:
         patch.setattr(jax.random, "bernoulli", table.bernoulli)
         patch.setattr(jnp, "float32", jnp.float64)
@@ -275,14 +284,18 @@ class Branch:
         patch.setattr(enet, "max_pool_argmax", pool_)
 
 
-def check_train_step(zoo, monkeypatch, seed, b=2, hw=64, model_seed=2):
-    """The step check above at batch ``b``; returns the dropout calls."""
-    model = create_model(zoo.name, seed=model_seed)
-    x, masks, valid = inputs(131 + seed, b=b, hw=hw)
+def check_train_step(zoo, monkeypatch, seed, b=2, hw=64, model_seed=2, live=()):
+    """The step check above at batch ``b``; returns the dropout calls.
+    ``live``: names of ``testing.zero_gradients`` that the step's data
+    makes live, held as every other tensor."""
+    model = zoo.model(model_seed)
+    x, masks, valid = inputs(131 + seed, b=b, hw=hw, kind=zoo.input_kind)
     loss_j64, want, table_j = jax_step(zoo, model, x, masks, valid, seed, monkeypatch)
-    loss_64, got_64 = port_f64(port_step(model, masks, valid, seed), model, x, monkeypatch)
+    loss_64, got_64 = port_f64(port_step(model, masks, valid, seed,
+                                         channels_last=zoo.channels_last),
+                               model, x, monkeypatch)
     branch = Branch()
-    step = port_step(model, masks, valid, seed, branch)
+    step = port_step(model, masks, valid, seed, branch, zoo.channels_last)
     branch.record = True
     loss, got = step(x)
     branch.record = False
@@ -293,7 +306,7 @@ def check_train_step(zoo, monkeypatch, seed, b=2, hw=64, model_seed=2):
     want = {n: want[n] for n in names}
     assert abs(loss - loss_j64) <= 1e-5, (loss, loss_j64)
     assert abs(loss_64 - loss_j64) <= 1e-12, (loss_64, loss_j64)
-    zero = zero_gradients(model, batch=b)
+    zero = [n for n in zero_gradients(model, batch=b) if n not in live]
     scale = max(float(np.abs(v).max()) for v in want.values())
     f64 = max((_distance(got_64[n], want[n]), n) for n in names if n not in zero)
     noise = max([float(np.abs(got_64[n]).max()) / scale for n in zero] or [0.0])
